@@ -20,6 +20,7 @@ plus an initial pose x0 (3,).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -189,6 +190,38 @@ def drifted_world(T=2000, n_landmarks=150, world_size=50.0, seed=3,
     drifted = Dataset(ds.scans, odo, u_noisy, x_true[0].copy(),
                       name="synthetic-drift")
     return drifted, x_true, landmarks
+
+
+# The environment variable naming the directory that holds the reference
+# project's data files (data_IJAC2018.mat, datos_palomar1.mat).
+REFERENCE_DIR_ENV = "ICM_REFERENCE_DIR"
+
+
+def _reference_file(name: str) -> str:
+    ref_dir = os.environ.get(REFERENCE_DIR_ENV)
+    if not ref_dir:
+        raise FileNotFoundError(
+            f"{name}: pass the .mat path, or set {REFERENCE_DIR_ENV} to the "
+            f"directory that holds it")
+    return os.path.join(ref_dir, name)
+
+
+def load(name_or_path: str, **kw) -> Dataset:
+    """A dataset by name ("ijac2018", "palomar", "synthetic") or by the
+    path of a reference .mat file.  A name reads its file from the
+    directory in ``$ICM_REFERENCE_DIR``; a missing file or an unset
+    variable raises FileNotFoundError."""
+    if name_or_path.endswith("data_IJAC2018.mat") or name_or_path == "ijac2018":
+        path = name_or_path if name_or_path.endswith(".mat") else \
+            _reference_file("data_IJAC2018.mat")
+        return load_ijac2018(path)
+    if "palomar" in name_or_path:
+        path = name_or_path if name_or_path.endswith(".mat") else \
+            _reference_file("datos_palomar1.mat")
+        return load_palomar(path, **kw)
+    if name_or_path == "synthetic":
+        return synthetic_world(**kw)
+    raise ValueError(f"unknown dataset {name_or_path!r}")
 
 
 def world_checksum(ds: Dataset) -> str:

@@ -8,10 +8,13 @@ torch raises on out-of-range indices.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from icm_slam_tpu_torch.ops.assoc import nearest_landmark
 
 
 class MapState(NamedTuple):
@@ -46,6 +49,7 @@ def associate(ref_pos, ref_live, pts, mask, dist_thr):
 
     ref_pos: (L, 2); ref_live: (L,) bool; pts: (..., B, 2); mask: (..., B).
     Returns (labels in [0, L), -1 for far or L for masked-out; min_dist).
+    JAX's contract, which the tests hold ``update``'s association to.
     """
     diff = pts[..., :, None, :] - ref_pos
     d = torch.sqrt((diff * diff).sum(dim=-1))                 # (..., B, L)
@@ -56,6 +60,87 @@ def associate(ref_pos, ref_live, pts, mask, dist_thr):
     labels = torch.where(min_dist > dist_thr, -1, labels)
     labels = torch.where(mask, labels, L)
     return labels, min_dist
+
+
+def connected_component_labels(pts, mask, dist_thr):
+    """Threshold-graph connected components over masked points.
+
+    pts: (..., B, 2); mask: (..., B).  Each component is labelled by its
+    smallest member index, masked-out points by B.  A fixed
+    ceil(log2 B) + 1 rounds of min-label propagation, as the JAX package
+    runs (not iterated to convergence: long chains keep the labels JAX
+    gives them).
+    """
+    B = pts.shape[-2]
+    diff = pts[..., :, None, :] - pts[..., None, :, :]
+    d = torch.sqrt((diff * diff).sum(dim=-1))                 # (..., B, B)
+    adj = (d <= dist_thr) & mask[..., :, None] & mask[..., None, :]
+    eye = torch.eye(B, dtype=torch.bool, device=pts.device)
+    adj = adj | (eye & mask[..., :, None])
+    idx = torch.arange(B, dtype=torch.int32, device=pts.device)
+    lab = torch.where(mask, idx, B)
+    n_rounds = max(1, math.ceil(math.log2(B)) + 1) if B > 1 else 1
+    for _ in range(n_rounds):
+        neigh = torch.where(adj, lab[..., None, :], B)
+        lab = torch.minimum(lab, neigh.min(dim=-1).values)
+    return lab
+
+
+def allocate_new_labels(labels, pts, mask, nact, dist_thr, quirk=True):
+    """Assign labels >= nact to the far observations (labels == -1) of one
+    frame.  quirk: all of them share one new label (ICM_SLAM.py:176);
+    otherwise connected components at dist_thr, labelled nact, nact+1, ...
+    Returns (labels, n_new); labels may reach past the table (>= L)."""
+    far = labels == -1
+    if quirk:
+        return torch.where(far, nact, labels), far.any().to(torch.int32)
+    B = pts.shape[-2]
+    comp = connected_component_labels(pts, far & mask, dist_thr)
+    comp = compact_labels(comp, far & mask, B)
+    labels = torch.where(far, nact + comp, labels)
+    n_new = torch.where(far.any(), torch.where(far, comp, -1).max() + 1, 0)
+    return labels, n_new.to(torch.int32)
+
+
+def scatter_update(state: MapState, pts, labels, n_new) -> MapState:
+    """Fold one frame's observations into the table by incremental
+    weighted mean (ICM_SLAM.py:184-194).  Labels >= L go to a discard row
+    that is sliced off."""
+    L = state.pos.shape[0]
+    dtype, dev = state.pos.dtype, state.pos.device
+    idx = torch.clamp(labels, max=L).long()
+    w = (labels < L).to(dtype)
+    sums = torch.zeros((L + 1, 2), dtype=dtype, device=dev).index_add_(
+        0, idx, pts * w[:, None])[:L]
+    cnt = torch.zeros((L + 1,), dtype=dtype, device=dev).index_add_(
+        0, idx, w)[:L]
+    tot = state.counts + cnt
+    new_pos = torch.where((cnt > 0)[:, None],
+                          (sums + state.pos * state.counts[:, None])
+                          / torch.clamp(tot, min=1.0)[:, None],
+                          state.pos)
+    return MapState(new_pos, tot, state.nact + n_new)
+
+
+def update(state: MapState, ref_pos, ref_nact, pts, mask, dist_thr,
+           quirk=True):
+    """Associate one frame against the frozen (ref_pos, ref_nact) and fold
+    it into ``state`` (Mapa.actualizar, ICM_SLAM.py:128-201).
+
+    pts: (B, 2); mask: (B,).  Returns (new_state, labels).  The
+    association is the nearest-landmark kernel (K2; its plain version on
+    the CPU) over the live prefix ``arange(L) < ref_nact``, gated on the
+    distance it returns.  It takes the argmin of d^2 where ``associate``
+    takes that of sqrt(d^2): the same gate, and the same label except on a
+    tie of sqrt(d^2).
+    """
+    L = ref_pos.shape[0]
+    lab, dist = nearest_landmark(pts[None], ref_pos, ref_nact)
+    labels = torch.where(dist[0] > dist_thr, -1, lab[0])
+    labels = torch.where(mask, labels, L)
+    labels, n_new = allocate_new_labels(labels, pts, mask, state.nact,
+                                        dist_thr, quirk)
+    return scatter_update(state, pts, labels, n_new), labels
 
 
 def _relabel_walk(nn, close, n, K):

@@ -1,6 +1,7 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them via ctypes.
 
-The first call on a GPU compiles every ``csrc/*.cu`` into one shared
+The first call on a GPU compiles every ``csrc/*.cu`` into an object, one
+nvcc per source, all started together, and links them into one shared
 library with a plain C interface, under ``build/icm_slam_tpu_torch/`` at
 the root of the checkout, named by a hash of the sources and the flags;
 later calls (and later processes) load the cached file.  Nothing here runs
@@ -20,8 +21,9 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "icm_slam_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the exported launchers; each returns a cudaError_t
@@ -61,15 +63,35 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libicm_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc, tag = find_nvcc(), f"{out}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in _sources()]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                  for src, obj in zip(_sources(), objs)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", f"{tag}.tmp",
+                   *objs]])
+        os.replace(f"{tag}.tmp", out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def library() -> ctypes.CDLL:

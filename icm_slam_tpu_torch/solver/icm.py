@@ -1,11 +1,12 @@
 """ICM outer loop: init sweep + N refinement sweeps + map filtering.
 
-Port of ``icm_slam_tpu.solver.icm.run`` on the default batched engine
-(the reference __main__ pipeline, ICM_ROS.py:280-316): scan filtering,
-first-frame clustering on the host, the batched Picard init, then N
-refinement sweeps, each followed by the map filter.  The per-sweep
-witnesses and map changes stay on the device during the loop and are
-checked once after it, as the fused JAX loop does.
+Port of ``icm_slam_tpu.solver.icm.run`` (the reference __main__ pipeline,
+ICM_ROS.py:280-316): scan filtering, first-frame clustering on the host,
+the init (batched Picard or the causal frame-by-frame sweep), then N
+refinement sweeps (batched or sequential), each followed by the map
+filter.  The per-sweep witnesses and map changes stay on the device
+during a segment of sweeps and are checked at its end, before any
+observer sees the segment's state, as the fused JAX loop does.
 """
 from __future__ import annotations
 
@@ -26,9 +27,10 @@ from icm_slam_tpu_torch.mapping.landmark_map import (MapState, empty_map,
                                                      filter_map,
                                                      seed_from_clusters)
 from icm_slam_tpu_torch.solver.sweeps import (SweepData, auto_obs_cap,
-                                              compact_data,
+                                              compact_data, init_sweep,
                                               init_sweep_batched,
                                               refine_sweep_batched,
+                                              refine_sweep_sequential,
                                               resolve_init_merge_cap)
 
 
@@ -60,27 +62,33 @@ def check_supported(config: ICMConfig) -> None:
     """Raise NotImplementedError on configurations the port does not run."""
     unsupported = [
         (config.model is not None, "custom EnergyModel hooks (model)"),
-        (config.sweep_mode != "batched",
+        (config.sweep_mode in ("ba", "windowed_ba"),
          f"sweep_mode={config.sweep_mode!r}"),
-        (not config.replicate_new_obs_quirk, "replicate_new_obs_quirk=False"),
-        (config.init_mode == "sequential", "init_mode='sequential'"),
-        (config.pose_update != "redblack",
-         f"pose_update={config.pose_update!r}"),
     ]
     for bad, what in unsupported:
         if bad:
-            raise NotImplementedError(
-                f"{what} is not ported; only the default batched engine is")
+            raise NotImplementedError(f"{what} is not ported")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises
+    (the port never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but "
+                           f"torch.cuda.is_available() is False")
+    return device
 
 
 def resolve_config(config: ICMConfig, data) -> ICMConfig:
     """Data-dependent config resolution + safety guards.
 
-    As ``icm_slam_tpu.solver.icm.resolve_config``: ``obs_cap`` 0 resolves
-    to the dataset's largest per-frame valid count (a smaller explicit
-    value is an error); ``map_run_cap`` is dropped when the provable live
-    bound total_obs / cota reaches it, and otherwise shrinks to the
-    tightest 128-aligned width above that bound.
+    As ``icm_slam_tpu.solver.icm.resolve_config``: an explicit ``obs_cap``
+    below the dataset's largest per-frame valid count is an error in every
+    mode; ``obs_cap`` 0 resolves to that count in the batched modes only
+    (the sequential engines associate on all beams); ``map_run_cap`` is
+    dropped when the provable live bound total_obs / cota reaches it, and
+    otherwise shrinks to the tightest 128-aligned width above that bound.
     """
     if config.obs_cap:
         cap_needed = auto_obs_cap(data.mask)
@@ -90,7 +98,7 @@ def resolve_config(config: ICMConfig, data) -> ICMConfig:
                 f"per-frame valid-beam count ({cap_needed}); beam "
                 f"compaction would silently drop real observations. "
                 f"Use obs_cap=0 (auto) or >= {cap_needed}.")
-    else:
+    elif config.sweep_mode in ("batched", "windowed_ba", "ba"):
         config = dataclasses.replace(config, obs_cap=auto_obs_cap(data.mask))
     if config.map_run_cap and config.map_run_cap_checked:
         if config.map_run_cap >= config.L:
@@ -178,6 +186,31 @@ def seed_map(data: SweepData, x0, config: ICMConfig) -> MapState:
     return seed_from_clusters(config.L, pts_valid, labels, dtype, dev)
 
 
+def use_batched_init(config: ICMConfig) -> bool:
+    """Iteration-0 engine choice: the batched Picard init needs the
+    one-new-label-per-frame quirk and the default model; the sequential
+    sweep mode, or ``init_mode="sequential"``, takes the causal sweep."""
+    if config.init_mode == "sequential":
+        return False
+    if config.init_mode == "batched":
+        return True
+    return (config.sweep_mode != "sequential"
+            and config.replicate_new_obs_quirk and config.model is None)
+
+
+def _init_merge_cap(config: ICMConfig) -> int:
+    """The init-witness merge cap to enforce: nonzero only when the batched
+    init ran and its final duplicate merge was cap-sliced."""
+    return resolve_init_merge_cap(config) if use_batched_init(config) else 0
+
+
+def _init(data: SweepData, seed: MapState, x0, config: ICMConfig, w):
+    """Iteration 0. Returns (map_state, poses (T, 3), raw_nact)."""
+    if use_batched_init(config):
+        return init_sweep_batched(data, seed, x0, config, w)
+    return init_sweep(data, seed, x0, config, w)
+
+
 def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
                  w):
     """One refinement sweep + map filtering.
@@ -185,7 +218,10 @@ def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
     Returns (filtered map, poses, witness): witness = int32 [raw pre-filter
     live count, kept-after-prune count], validated by check_witness.
     """
-    state, x = refine_sweep_batched(data, old_map, x, config, w)
+    if config.sweep_mode == "sequential":
+        state, x = refine_sweep_sequential(data, old_map, x, config, w)
+    else:
+        state, x = refine_sweep_batched(data, old_map, x, config, w)
     filtered = filter_map(state, config.cota, config.dist_thr,
                           live_cap=config.map_run_cap)
     witness = torch.stack([state.nact.to(torch.int32),
@@ -193,14 +229,58 @@ def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
     return filtered, x, witness
 
 
+def _compaction_cap(data: SweepData, config: ICMConfig) -> int:
+    """Beam-compaction budget when it applies to ``data``, else 0: the
+    sequential sweep keeps the shared 1-D beam angles, and compacted data
+    (B == cap) is left as it is."""
+    if config.sweep_mode == "sequential":
+        return 0
+    cap = config.obs_cap or 0
+    return cap if cap and cap < data.dist.shape[1] else 0
+
+
 def hoist_compaction(data: SweepData, config: ICMConfig) -> SweepData:
-    """Compact beams once for the refinement sweeps (loop-invariant).
+    """Compact beams once for the batched refinement sweeps (loop-invariant).
 
     The result has per-frame (T, cap) ``ang``; seed_map and the init need
     the raw data.
     """
-    cap = config.obs_cap or 0
-    return compact_data(data, cap) if 0 < cap < data.dist.shape[1] else data
+    cap = _compaction_cap(data, config)
+    return compact_data(data, cap) if cap else data
+
+
+def refine_loop(data: SweepData, cur_map: MapState, x, config: ICMConfig, w,
+                n_iters: int, stride: int = 0, first: int = 0,
+                on_segment=None):
+    """``n_iters`` refinement sweeps in segments of ``stride`` sweeps (0:
+    one segment).  At the end of each segment its witnesses are checked
+    on the host, then ``on_segment(k, cur_map, x)`` fires with k the index
+    of the segment's last sweep (sweeps are numbered from ``first``).
+
+    Returns (cur_map, x, changes (n_iters, 3) NumPy).  Within a segment
+    nothing waits for the device but the map filter's relabel walk.
+    """
+    stride = stride if stride > 0 else max(n_iters, 1)
+    changes = []
+    k = first
+    while k < first + n_iters:
+        seg = min(stride, first + n_iters - k)
+        wits, chgs = [], []
+        for _ in range(seg):
+            prev = cur_map
+            cur_map, x, wit = _refine_step(data, prev, x, config, w)
+            chgs.append(map_change(cur_map, prev,
+                                   live_cap=config.map_run_cap))
+            wits.append(wit)
+        for j, wv in enumerate(torch.stack(wits).cpu().numpy()):
+            check_witness(wv, config, f"refinement sweep {k + j}")
+        changes.append(torch.stack(chgs).cpu().numpy())
+        k += seg
+        if on_segment is not None:
+            on_segment(k - 1, cur_map, x)
+    changes = (np.concatenate(changes) if changes
+               else np.zeros((0, 3), np.float32))
+    return cur_map, x, changes
 
 
 def map_change(new_map: MapState, old_map: MapState, live_cap: int = 0):
@@ -231,18 +311,19 @@ def _sync(device: torch.device) -> None:
 
 def run(dataset: Dataset, config: ICMConfig, device,
         n_iters: Optional[int] = None, verbose: bool = False,
-        callback=None) -> ICMResult:
+        callback=None, on_init=None, callback_stride: int = 1) -> ICMResult:
     """Full pipeline on ``device``: init + N ICM iterations.
 
-    ``callback(k, cur_map, x)`` fires after every sweep k (after its
-    witness is checked); ``verbose`` prints one line per sweep.  Both read
-    the device, so they cost a host sync per sweep.
+    ``on_init(x_init)`` fires right after the init (before any
+    refinement).  ``callback(k, cur_map, x)`` fires after sweep k, or,
+    with ``callback_stride`` > 1, only at the end of each segment of that
+    many sweeps (k = the segment's last sweep); the witnesses of the
+    sweeps before it are checked first.  ``verbose`` prints one line per
+    sweep (and makes the callback fire every sweep).  Observers read the
+    device, so each costs a host sync.
     """
     check_supported(config)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but "
-                           f"torch.cuda.is_available() is False")
+    device = resolve_device(device)
     n_iters = config.N if n_iters is None else n_iters
     timings = {}
 
@@ -257,7 +338,7 @@ def run(dataset: Dataset, config: ICMConfig, device,
     timings["prepare_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    state, x, raw_nact = init_sweep_batched(data, seed, x0, config, w)
+    state, x, raw_nact = _init(data, seed, x0, config, w)
     cur_map = filter_map(state, config.cota, config.dist_thr,
                          live_cap=config.map_run_cap)
     _sync(device)
@@ -265,24 +346,17 @@ def run(dataset: Dataset, config: ICMConfig, device,
     check_witness(torch.stack([raw_nact.to(torch.int32),
                                kept_count(state, config.cota)]).cpu(),
                   config, "init sweep",
-                  init_merge_cap=resolve_init_merge_cap(config))
+                  init_merge_cap=_init_merge_cap(config))
     x_init = x.cpu().numpy()
+    if on_init is not None:
+        on_init(x_init)
 
     t0 = time.perf_counter()
     data = hoist_compaction(data, config)
     _sync(device)
     timings["hoist_s"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    witnesses, changes = [], []
-    for k in range(n_iters):
-        prev_map = cur_map
-        cur_map, x, witness = _refine_step(data, prev_map, x, config, w)
-        changes.append(map_change(cur_map, prev_map,
-                                  live_cap=config.map_run_cap))
-        witnesses.append(witness)
-        if callback is not None or verbose:
-            check_witness(witness.cpu(), config, f"refinement sweep {k}")
+    def observe(k, cur_map, x):
         if callback is not None:
             callback(k, cur_map, x)
         if verbose:
@@ -291,16 +365,20 @@ def run(dataset: Dataset, config: ICMConfig, device,
             print(f"[icm] iter {k + 1}/{n_iters} "
                   f"landmarks={int(cur_map.nact)} correction={corr:.4f}",
                   flush=True)
+
+    t0 = time.perf_counter()
+    if verbose:
+        stride = 1
+    elif callback is not None:
+        stride = max(int(callback_stride), 1)
+    else:
+        stride = 0
+    cur_map, x, changes = refine_loop(
+        data, cur_map, x, config, w, n_iters, stride=stride,
+        on_segment=observe if (callback is not None or verbose) else None)
     _sync(device)
     timings["refine_s"] = time.perf_counter() - t0
     timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
-    if n_iters:
-        witnesses = torch.stack(witnesses).cpu().numpy()
-        changes = torch.stack(changes).cpu().numpy()
-    else:
-        changes = np.zeros((0, 3), np.float32)
-    for k, wv in enumerate(witnesses):
-        check_witness(wv, config, f"refinement sweep {k}")
 
     nact = int(cur_map.nact)
     return ICMResult(

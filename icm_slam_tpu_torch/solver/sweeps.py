@@ -1,20 +1,30 @@
-"""ICM sweep engines of the default batched path: Picard init, batched refine.
+"""ICM sweep engines: causal init, sequential refine, Picard init, batched
+refine.
 
-Port of the batched half of ``icm_slam_tpu.solver.sweeps``:
+Port of ``icm_slam_tpu.solver.sweeps`` for the default energy model:
 
+* ``init_sweep`` / ``init_chunk`` — ICM iteration 0 frame by frame (the
+  reference's causal loop): a Python loop over one-problem LM solves in
+  place of the JAX ``lax.scan``, with no host sync per frame.
+* ``refine_sweep_sequential`` — the reference-faithful Gauss-Seidel sweep,
+  frame by frame against the frozen previous map.
 * ``init_sweep_batched`` — ICM iteration 0 as a chunked-Picard sweep
   (C frames per chunk, R rounds).  The JAX ``lax.scan`` over chunks is a
   Python loop with no host syncs; the segmented SE(2) ``associative_scan``
   is a log-step (Hillis-Steele) scan in plain ops.
 * ``refine_sweep_batched`` — one sweep: all T associations against the
   frozen map in one pass (``batched_associate``), running means by
-  cumulative sums over frames, then red-black half-passes of batched LM
-  solves with the last frame's one-sided solve folded into the batch.
+  cumulative sums over frames, then red-black half-passes (or Jacobi
+  passes) of batched LM solves with the last frame's one-sided solve
+  folded into the batch.
 
 The association runs through the port's CUDA kernels on a GPU: the fused
-association + per-frame sums (``ops.assoc_sums``) on the capped branch,
-the nearest-landmark search (``ops.assoc``) on the uncapped one.
-Only the default model with the one-new-label-per-frame quirk is ported.
+association + per-frame sums (``ops.assoc_sums``) on the capped quirk
+branch, the nearest-landmark search (``ops.assoc``) on the other batched
+branches and, through ``landmark_map.update``, in every frame of the
+sequential engines.  The LM solves use the analytic Jacobians and the
+cofactor 3x3 solve everywhere (JAX's sequential engines use ``jacfwd``
+and an LU solve: the same math, other rounding).
 """
 from __future__ import annotations
 
@@ -27,7 +37,10 @@ from icm_slam_tpu_torch.core.energy import (PoseProblem, one_sided_jacobian,
                                             two_sided_jacobian,
                                             two_sided_residuals)
 from icm_slam_tpu_torch.core.geometry import beams_to_world, unicycle_step
-from icm_slam_tpu_torch.mapping.landmark_map import MapState, filter_map
+from icm_slam_tpu_torch.mapping.landmark_map import (MapState,
+                                                     compact_labels,
+                                                     connected_component_labels,
+                                                     filter_map, update)
 from icm_slam_tpu_torch.ops.assoc import nearest_landmark
 from icm_slam_tpu_torch.ops.assoc_sums import associate_and_sums
 from icm_slam_tpu_torch.solver.gauss_newton import lm_minimize
@@ -88,6 +101,178 @@ def _frame_sums(px, py, lab, wgt, L):
     out.index_add_(1, idx.reshape(-1), vals.reshape(3, -1))
     out = out.view(3, F, L + 1)[:, :, :L]
     return out[0], out[1], out[2]
+
+
+def _lm_one_sided(prob, x_start, w, iters):
+    return lm_minimize(lambda xx: one_sided_residuals(xx, prob, w),
+                       lambda xx: one_sided_jacobian(xx, prob, w),
+                       x_start[None], iters=iters)[0]
+
+
+def _lm_two_sided(prob, x_start, w, iters):
+    return lm_minimize(lambda xx: two_sided_residuals(xx, prob, w),
+                       lambda xx: two_sided_jacobian(xx, prob, w),
+                       x_start[None], iters=iters)[0]
+
+
+def _where_map(cond, a: MapState, b: MapState) -> MapState:
+    return MapState(*(torch.where(cond, u, v) for u, v in zip(a, b)))
+
+
+# ---------------------------------------------------------------------------
+# causal init sweep — ICM iteration 0, frame by frame
+# ---------------------------------------------------------------------------
+
+def _causal_step(state: MapState, xt, frame, config, w):
+    """One frame of the causal init (ICM_ROS.py:102-119).
+
+    frame = (dist_t (B,), mask_t (B,), ang_t (B,), u_prev (2,),
+    odo_prev (3,), odo_cur (3,)).  Returns (new state, new pose).  Empty
+    frames dead-reckon and leave the map as ``update`` left it (it adds
+    nothing for an all-masked frame); the choice is a ``torch.where``, so
+    the step never waits for the device.
+    """
+    dist_t, mask_t, ang_t, u_prev, odo_prev, odo_cur = frame
+    L = state.pos.shape[0]
+    xtc = unicycle_step(xt, u_prev, config.deltat)
+    empty = ~mask_t.any()
+    pts = beams_to_world(xtc, dist_t, ang_t)
+    new_state, labels = update(state, state.pos, state.nact, pts, mask_t,
+                               config.dist_thr,
+                               config.replicate_new_obs_quirk)
+    matched = new_state.pos[torch.clamp(labels, 0, L - 1).long()]
+    dist_p, ang_p, mask_p, matched_p = dist_t, ang_t, mask_t, matched
+    cap = config.obs_cap or 0
+    B = mask_t.shape[0]
+    if cap and cap < B:
+        # gather the valid beams for the pose solve (exact when cap >= the
+        # frame's valid count): the JAX cumsum-scatter compaction
+        rank = torch.cumsum(mask_t, 0) - 1
+        tgt = torch.where(mask_t & (rank < cap), rank, cap)
+        order = torch.zeros((cap + 1,), dtype=torch.long,
+                            device=mask_t.device)
+        order[tgt] = torch.arange(B, device=mask_t.device)
+        order = order[:cap]
+        mask_p = torch.arange(cap, device=mask_t.device) < mask_t.sum()
+        dist_p, ang_p, matched_p = dist_t[order], ang_t[order], \
+            matched[order]
+    z3 = torch.zeros((1, 3), dtype=xt.dtype, device=xt.device)
+    prob = PoseProblem(
+        dist=dist_p[None], ang=ang_p[None], mask=mask_p[None],
+        matched=matched_p[None], x_prev=xt[None], u_prev=u_prev[None],
+        odo_prev=odo_prev[None], odo_cur=odo_cur[None], x_next=z3,
+        u_cur=z3[:, :2], odo_next=z3)
+    x_opt = _lm_one_sided(prob, xtc, w, config.pose_gn_iters)
+    return new_state, torch.where(empty, xtc, x_opt)
+
+
+def init_chunk(data: SweepData, state: MapState, xt, config, w,
+               t_offset: int = 1):
+    """Causal init over the frames t_offset..T-1 of ``data``, from the
+    carry (state, xt).  Returns (state, last pose, poses of those frames
+    (T - t_offset, 3))."""
+    T = data.dist.shape[0]
+    ang = data.ang if data.ang.dim() == 2 else data.ang.expand(
+        data.dist.shape)
+    xs = []
+    for t in range(t_offset, T):
+        frame = (data.dist[t], data.mask[t], ang[t], data.u[t - 1],
+                 data.odom[t - 1], data.odom[t])
+        state, xt = _causal_step(state, xt, frame, config, w)
+        xs.append(xt)
+    xs = torch.stack(xs) if xs else xt.new_zeros((0, 3))
+    return state, xt, xs
+
+
+def init_sweep(data: SweepData, seed: MapState, x0, config, w
+               ) -> Tuple[MapState, torch.Tensor, torch.Tensor]:
+    """The causal init over frames 1..T-1 from the frame-0 seed.
+
+    Returns (map_state, poses (T, 3), raw_nact): the raw allocated-label
+    count, the table-overflow witness.
+    """
+    cap = config.obs_cap or 0
+    if cap and cap < data.dist.shape[1]:
+        data = compact_data(data, cap)
+    state, _, xs = init_chunk(data, seed, x0, config, w, t_offset=1)
+    return state, torch.cat([x0[None], xs]), state.nact
+
+
+# ---------------------------------------------------------------------------
+# sequential refinement sweep (fidelity mode)
+# ---------------------------------------------------------------------------
+
+def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
+                            w) -> Tuple[MapState, torch.Tensor]:
+    """One Gauss-Seidel ICM sweep, faithful to ICM_ROS.py:121-164.
+
+    ``data`` has the shared 1-D beam angles.  Frame t associates at its
+    stale pose against the frozen ``old_map`` and accumulates into a
+    table zeroed and seeded by frame 0; interior poses solve the
+    two-sided cost from the midpoint of their neighbours (fresh x[t-1],
+    stale x[t+1]), the last frame the one-sided cost from the kinematic
+    prediction; empty frames average.  The poses are written in place
+    into a clone of ``x``.  An empty frame 0 returns (old_map, x)
+    unchanged (ICM_ROS.py:133-135), chosen by ``torch.where``.
+    """
+    T = x.shape[0]
+    L = old_map.pos.shape[0]
+    dist_thr = config.dist_thr
+    quirk = config.replicate_new_obs_quirk
+    iters = config.pose_gn_iters
+    dtype, dev = x.dtype, x.device
+    ang = data.ang[None]
+
+    def assoc_frame(state, xt, t):
+        pts = beams_to_world(xt, data.dist[t], data.ang)
+        new_state, labels = update(state, old_map.pos, old_map.nact, pts,
+                                   data.mask[t], dist_thr, quirk)
+        return new_state, new_state.pos[torch.clamp(labels, 0,
+                                                     L - 1).long()]
+
+    state = MapState(torch.zeros((L, 2), dtype=dtype, device=dev),
+                     torch.zeros((L,), dtype=dtype, device=dev),
+                     old_map.nact)
+    state, _ = assoc_frame(state, x[0], 0)
+    x_all = x.clone()
+    xt_run = x[0]
+    for t in range(1, T - 1):
+        empty = ~data.mask[t].any()
+        new_state, matched = assoc_frame(state, x_all[t], t)
+        x_prev, x_next = x_all[t - 1], x_all[t + 1]
+        prob = PoseProblem(
+            dist=data.dist[t][None], ang=ang, mask=data.mask[t][None],
+            matched=matched[None], x_prev=x_prev[None],
+            u_prev=data.u[t - 1][None], odo_prev=data.odom[t - 1][None],
+            odo_cur=data.odom[t][None], x_next=x_next[None],
+            u_cur=data.u[t][None], odo_next=data.odom[t + 1][None])
+        x_opt = _lm_two_sided(prob, (x_prev + x_next) / 2.0, w, iters)
+        x_t = torch.where(empty, (xt_run + x_next) / 2.0, x_opt)
+        state = _where_map(empty, state, new_state)
+        x_all[t] = x_t
+        xt_run = x_t
+
+    t = T - 1
+    empty = ~data.mask[t].any()
+    new_state, matched = assoc_frame(state, x_all[t], t)
+    x_prev = x_all[t - 1]
+    z3 = torch.zeros((1, 3), dtype=dtype, device=dev)
+    prob = PoseProblem(
+        dist=data.dist[t][None], ang=ang, mask=data.mask[t][None],
+        matched=matched[None], x_prev=x_prev[None],
+        u_prev=data.u[t - 1][None], odo_prev=data.odom[t - 1][None],
+        odo_cur=data.odom[t][None], x_next=z3, u_cur=z3[:, :2],
+        odo_next=z3)
+    x_one = _lm_one_sided(
+        prob, unicycle_step(x_prev, data.u[t - 1], config.deltat), w, iters)
+    # an empty last frame dead-reckons from the running pose (the
+    # reference would index past the end, ICM_ROS.py:144)
+    x_t = torch.where(empty, (xt_run + x_all[t]) / 2.0, x_one)
+    state = _where_map(empty, state, new_state)
+    x_all[t] = x_t
+
+    empty0 = ~data.mask[0].any()
+    return _where_map(empty0, old_map, state), torch.where(empty0, x, x_all)
 
 
 # ---------------------------------------------------------------------------
@@ -314,19 +499,18 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
     in [0, L] with L = discard, map_after (MapState), matched (T, B, 2)
     running-mean values).  With an active ``map_run_cap`` only the first
     cap columns are searched (run() guarantees the live count stays below
-    it), through the fused association + sums kernel, with the gate in the
-    d^2 form; otherwise the nearest-landmark kernel searches all L columns
-    and the gate compares the distance.
+    it).  On the quirk path that search is the fused association + sums
+    kernel, with the gate in the d^2 form; otherwise the nearest-landmark
+    kernel searches the columns and the gate compares the distance.
     """
     L = old_map.pos.shape[0]
     dist_thr = config.dist_thr
     cap_l = config.map_run_cap if 0 < config.map_run_cap < L else 0
-    if not config.replicate_new_obs_quirk:
-        raise NotImplementedError(
-            "replicate_new_obs_quirk=False (connected-component labels) "
-            "is not ported")
 
     pts = beams_to_world(x, data.dist, data.ang)             # (T, B, 2)
+    if not config.replicate_new_obs_quirk:
+        return _associate_components(data, old_map, pts, config,
+                                     cap_l or L)
     if cap_l:
         lab_n, d2min, sums = associate_and_sums(
             pts, old_map.pos[:cap_l], data.mask, old_map.nact, dist_thr)
@@ -348,6 +532,32 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
             cap_l)
     else:
         final, matched = _running_means_full(pts, lab, old_map, n_new)
+    return lab, final, matched
+
+
+def _associate_components(data: SweepData, old_map: MapState, pts, config,
+                          Lr):
+    """The non-quirk branch of ``batched_associate``: far beams of each
+    frame split into connected components at dist_thr, labelled from
+    ``nact + cumsum(k) - k`` (k = the frame's component count); the
+    association searches the first ``Lr`` columns, gated on the distance
+    (``icm_slam_tpu.solver.sweeps.batched_associate``, :650-658 and
+    :779-793)."""
+    L = old_map.pos.shape[0]
+    B = pts.shape[1]
+    lab_n, min_dist = nearest_landmark(pts, old_map.pos[:Lr], old_map.nact)
+    lab = torch.where(min_dist > config.dist_thr, -1, lab_n)
+    lab = torch.where(data.mask, lab, L)
+    far = lab == -1
+    fm = far & data.mask
+    comp = compact_labels(
+        connected_component_labels(pts, fm, config.dist_thr), fm, B)
+    k = torch.where(fm.any(dim=1),
+                    torch.where(fm, comp, -1).max(dim=1).values + 1, 0)
+    base = old_map.nact + torch.cumsum(k, 0, dtype=torch.int32) - k
+    lab = torch.where(far, base[:, None] + comp, lab)
+    n_new = k.sum().to(torch.int32)
+    final, matched = _running_means_full(pts, lab, old_map, n_new)
     return lab, final, matched
 
 
@@ -447,10 +657,9 @@ def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t):
 def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
                          last_t: int | None = None
                          ) -> Tuple[MapState, torch.Tensor]:
-    """One ICM sweep: batched association + red-black pose half-passes."""
-    if config.pose_update != "redblack":
-        raise NotImplementedError(
-            f"pose_update={config.pose_update!r} is not ported")
+    """One ICM sweep: batched association, then ``pose_passes`` red-black
+    half-pass pairs or, with ``pose_update="jacobi"``, full Jacobi passes
+    (every pose against the previous pass's neighbours)."""
     T = x.shape[0]
     if last_t is None:
         last_t = T - 1
@@ -473,6 +682,11 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
         cand = torch.where((ts <= last_t)[:, None], cand, x[ts])
         return x.index_copy(0, ts, cand)
 
+    if config.pose_update == "jacobi":
+        every = torch.arange(1, T, device=x.device)
+        for _ in range(config.pose_passes):
+            x = solve_at(x, every)
+        return final_map, x
     odd = torch.arange(1, T, 2, device=x.device)
     even = torch.arange(2, T, 2, device=x.device)
     for _ in range(config.pose_passes):

@@ -8,9 +8,10 @@ the JAX package, so it also runs where JAX is not installed:
         tests/test_torch_kernels_cuda.py
 
 Tolerances: labels exact; K1 d2min bitwise (--fmad=false), sums atol 1e-4
-(f32 sums in another order); K2 distances atol 1e-5; a small end-to-end
-run on the GPU against the same run on the CPU, census exact and poses
-atol 1e-3.
+(f32 sums in another order); K2 distances atol 1e-5; the per-frame map
+update through K2 against the same call on CPU tensors, labels and counts
+exact, positions atol 1e-5; small end-to-end runs on the GPU against the
+same runs on the CPU, census exact and poses atol 1e-3.
 """
 import numpy as np
 import pytest
@@ -67,6 +68,58 @@ def test_k2_kernel_matches_plain(dev, nact):
         assert float((dist - dist_p)[fin].abs().max()) <= 1e-5
 
 
+def test_k2_near_tie_matches_plain(dev):
+    """Exact and one-ulp d^2 ties: the first minimum wins in both."""
+    rng = np.random.default_rng(6)
+    base = rng.uniform(0.5, 0.9, (40, 2)).astype(np.float32)
+    a = rng.uniform(0, 2 * np.pi, 40)
+    r = np.hypot(base[:, 0], base[:, 1]).astype(np.float32)
+    ring = np.stack([r * np.cos(a), r * np.sin(a)], 1).astype(np.float32)
+    mirror = -base                                   # exactly equal d^2
+    mp = np.concatenate([ring, base, mirror, base]).astype(np.float32)
+    pts = torch.zeros((1, 3, 2), device=dev)
+    pts[0, 1] = 1e-7
+    pts[0, 2, 0] = -1e-7
+    mp = torch.from_numpy(mp).to(dev)
+    for n in (1, 40, 80, 120, 160):
+        nact = torch.tensor(n, dtype=torch.int32, device=dev)
+        lab, dist = k2.nearest_landmark(pts, mp, nact)
+        lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
+        assert torch.equal(lab, lab_p)
+        assert torch.equal(dist, dist_p)
+
+
+@pytest.mark.parametrize("quirk", [True, False])
+def test_update_through_k2_matches_cpu(dev, quirk):
+    from icm_slam_tpu_torch.mapping import landmark_map as lm
+    rng = np.random.default_rng(7)
+    L, B = 1024, 181
+    ref = rng.uniform(-15, 15, (L, 2)).astype(np.float32)
+    pick = rng.integers(0, 700, B)
+    pts = (ref[pick] + rng.normal(0, 0.9, (B, 2))).astype(np.float32)
+    pts[:20] += 6.0                                  # far beams
+    mask = rng.uniform(size=B) < 0.8
+    pos = rng.uniform(-15, 15, (L, 2)).astype(np.float32)
+    cnt = np.where(np.arange(L) < 720, rng.integers(1, 30, L), 0)
+
+    def call(d):
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(d)
+        state = lm.MapState(t(pos), t(cnt.astype(np.float32)),
+                            torch.tensor(720, dtype=torch.int32, device=d))
+        return lm.update(state, t(ref),
+                         torch.tensor(700, dtype=torch.int32, device=d),
+                         t(pts), t(mask), 1.0, quirk)
+
+    before = k2.LAUNCHES
+    st_g, lab_g = call(dev)
+    assert k2.LAUNCHES == before + 1
+    st_c, lab_c = call("cpu")
+    assert torch.equal(lab_g.cpu(), lab_c)
+    assert int(st_g.nact) == int(st_c.nact) > 720
+    assert torch.equal(st_g.counts.cpu(), st_c.counts)
+    assert float((st_g.pos.cpu() - st_c.pos).abs().max()) <= 1e-5
+
+
 def test_wrappers_reject_cpu_map_with_cuda_points(dev):
     pts, mp, mask = _inputs(8, 16, 128, 5, dev)
     n = torch.tensor(3, dtype=torch.int32, device=dev)
@@ -85,6 +138,26 @@ def test_small_run_gpu_matches_cpu(dev):
     before = k1.LAUNCHES
     gpu = run(ds, cfg, dev)
     assert k1.LAUNCHES == before + 3
+    cpu = run(ds, cfg, "cpu")
+    assert gpu.map_pos.shape == cpu.map_pos.shape
+    for f in ("x_init", "x", "map_pos"):
+        np.testing.assert_allclose(getattr(gpu, f), getattr(cpu, f),
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sweep_mode="sequential", N=1),
+    dict(replicate_new_obs_quirk=False, pose_update="jacobi", N=2)])
+def test_small_engine_runs_gpu_match_cpu(dev, kw):
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver.icm import run
+    ds = synthetic_world(T=120, n_landmarks=10, seed=7)
+    cfg = ICMConfig(L=256, cota=20.0, **kw)
+    before = k2.LAUNCHES
+    gpu = run(ds, cfg, dev)
+    per_sweep = ds.T if kw.get("sweep_mode") == "sequential" else 1
+    assert k2.LAUNCHES - before == ds.T - 1 + cfg.N * per_sweep
     cpu = run(ds, cfg, "cpu")
     assert gpu.map_pos.shape == cpu.map_pos.shape
     for f in ("x_init", "x", "map_pos"):

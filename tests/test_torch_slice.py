@@ -1,7 +1,7 @@
 """The port's main path end to end against icm_slam_tpu.solver.icm.run, and
-the port's boundaries: no JAX import, no CPU fallback for a CUDA device,
-NotImplementedError on what is not ported, chip_smoke.py failing without
-a GPU.
+the port's boundaries: no JAX (and no PyYAML) import, no CPU fallback for
+a CUDA device, NotImplementedError on what is not ported, chip_smoke.py
+failing without a GPU.
 
 The world resolves to obs_cap=16, map_run_cap=128 < L=256: the capped
 branch, which JAX runs through its fused association kernel with
@@ -80,11 +80,24 @@ def test_timings_callback_verbose(capsys):
 @pytest.mark.parametrize("kw", [
     dict(model=object()), dict(sweep_mode="sequential"),
     dict(replicate_new_obs_quirk=False), dict(init_mode="sequential"),
-    dict(pose_update="jacobi")])
+    dict(pose_update="jacobi"), dict(sweep_mode="ba"),
+    dict(sweep_mode="windowed_ba")])
 def test_unported_configs_raise(kw):
+    """Custom model hooks and the BA sweep modes raise; the configurations
+    ported since run one sweep."""
     ds = synthetic_world(T=20, n_landmarks=4, seed=0)
-    with pytest.raises(NotImplementedError):
-        ticm.run(ds, TC(L=256, N=1, **kw), "cpu")
+    cfg = TC(L=256, N=1, **kw)
+    if "model" in kw or kw.get("sweep_mode") in ("ba", "windowed_ba"):
+        with pytest.raises(NotImplementedError):
+            ticm.run(ds, cfg, "cpu")
+        return
+    ticm.check_supported(cfg)
+    res = ticm.run(ds, cfg, "cpu")
+    assert res.x.shape == res.x_init.shape == (20, 3)
+    assert res.changes.shape == (1, 3)
+    assert res.map_pos.shape == (res.map_counts.shape[0], 2)
+    for a in (res.x, res.x_init, res.map_pos, res.changes):
+        assert np.isfinite(a).all()
 
 
 def test_cuda_device_without_gpu_raises():
@@ -99,10 +112,18 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import icm_slam_tpu_torch as p\n"
+        "sys.modules['yaml'] = None\n"
         "import icm_slam_tpu_torch.solver.icm\n"
+        "import icm_slam_tpu_torch.api, icm_slam_tpu_torch.cli\n"
+        "import icm_slam_tpu_torch.runtime.online\n"
+        "import icm_slam_tpu_torch.runtime.replay\n"
+        "import icm_slam_tpu_torch.utils.checkpoint\n"
+        "import icm_slam_tpu_torch.utils.export\n"
+        "import icm_slam_tpu_torch.utils.metrics\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "p.ICMConfig.from_yaml('configs/reference.yaml')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'icm_slam_tpu']\n"
         "assert not bad, bad\n"
