@@ -12,9 +12,20 @@ nonzero and the final line is not printed:
    ``icm_slam_tpu_torch/csrc`` (nvcc, sm_90a) with its seconds;
 2. K1 (fused association + sums) against its plain PyTorch version on the
    card at the main path's shapes (T=1833, B=48, K=128), nact in
-   {0, 1, 37, 128}: labels exact, d2min bitwise, sums atol 1e-4; times;
-3. K2 (nearest landmark) against its plain version at (1833, 48, 1024),
-   nact in {0, 1, 37, 1024}: labels exact, distances atol 1e-5; times;
+   {0, 1, 7, 9, 37, 128}, and at shapes with more beams than one round of
+   either pass, a width that is no multiple of 4 and duplicated columns:
+   labels exact, d2min bitwise, sums atol 1e-4 and bitwise between two
+   runs; the wrapper's issue interval;
+3. K2 (nearest landmark) against its plain version at the batched shapes
+   the paths give it, (1833, 48, 1024) and (1833, 48, 128) (the first 128
+   rows of a table of 2048, where the grouped kernel turns from its
+   groups of 32 columns to a column-by-column scan), nact in {0, 1, 37,
+   127, 128, 1000, 1024}, through the wrapper and with every variant of
+   its launch plan (32 lanes a point, the grouped kernel at three block
+   sizes); then a table wider than a block keeps in shared memory (two
+   chunks, the last ragged) and exact d^2 ties that straddle lanes and
+   chunks: labels exact, distances atol 1e-5 (ties: exact); the wrapper's
+   issue interval;
 4. the main path: ``run(synthetic_world(T=1833, seed=0), ICMConfig(),
    "cuda")`` (N=30, L=1024), held against the JAX package's golden file
    (tests/golden/torch_slice_synth_T1833_N30.npz, made by
@@ -40,16 +51,35 @@ nonzero and the final line is not printed:
    batched sweeps with connected-component labels; at L=1024 the first
    sweep overflows the table, in JAX as here) against the same golden:
    census exact, ATE within 10%, K2 exactly (T-1) + N, K1 never;
-10. K2 at the per-frame shape (1, 181, 1024) against its plain version,
-   nact in {0, 1, 37, 1024}, and on constructed d^2 ties: labels exact,
-   distances atol 1e-5; times;
+10. K2 at the per-frame shapes (1, 181, 1024) and (1, 48, 2048) against
+   its plain version, the wrapper and every variant, nact in {0, 1, 31,
+   33, 37, 127, 128, L - 1, L}, and on the tie tables: labels exact,
+   distances atol 1e-5; the plan must spread one frame over more than one
+   block;
 11. the entry points: ``api.run_offline`` with checkpoints (N=6, every 2)
    and a resume after deleting the last two checkpoints (census equal,
    poses atol 1e-3: the card's scatters add in no fixed order);
    ``api.run_online`` over ``stream_dataset`` with the sequential init
    against the offline causal init from the same first pose (census
    equal, x_init atol 1e-3); ``python -m icm_slam_tpu_torch run`` and
-   ``replay`` as subprocesses on the card, each file they write checked.
+   ``replay`` as subprocesses on the card, each file they write checked;
+12. the kernel table: the card's launch floor, then for every shape a
+   path above gave a kernel (KERNEL_SHAPES; the runs' launches are
+   counted by shape, and a shape that is not in the table fails the
+   script), each at nact = the table's width and at the live counts the
+   runs above left, the kernel's own duration (``graph_us``: launches captured in a
+   CUDA graph, the replay timed; beside it torch.profiler's self device
+   time), the wrapper's issue interval (``cuda_ms``: back-to-back calls,
+   which for a short kernel measures the host), the bound and what bounds
+   it; then both variants of K2 at each of its shapes, so that the one
+   ``launch_plan`` picks stands beside the other.  Where a checkout of
+   another commit's package lies under build/parent/ (never committed;
+   ``mkdir -p build/parent && git archive HEAD~1 icm_slam_tpu_torch | tar
+   -x -C build/parent``), the same table of both, in turns old, new, new,
+   old, each turn a process of its own.
+
+``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
+package under ROOT (what each of those turns runs).
 
 Every run of a main path (phases 4, 5, 8, 9, 11) counts the kernel
 launches with the counters set to 0 just before it and read just after;
@@ -108,13 +138,234 @@ def time_pair(kernel, plain, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def kernel_inputs(T, B, K, seed):
-    """Beam points scattered around a random map, as on the main path."""
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def graph_us(fn, reps, replays=7):
+    """A kernel's own duration in microseconds: ``reps`` calls of the
+    wrapper captured into one CUDA graph (the launchers take PyTorch's
+    current stream, which is the capturing stream), the replay timed with
+    CUDA events, divided by ``reps``; the median of ``replays`` replays.
+    No host work lies between two launches of a replay, so this is the
+    kernel plus the card's node-to-node gap (see ``launch_floor``)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) * 1e3 / reps)
+    return median(out)
+
+
+def profiler_us(fn, name_part, reps):
+    """Mean self device time in microseconds of the kernels whose name
+    holds ``name_part`` over ``reps`` calls (torch.profiler): the
+    cross-check of ``graph_us``.  None when the trace holds no such kernel
+    (a short window after a long trace in the same process can come back
+    empty); nothing else is derived from this figure."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and name_part in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+            count += e.count
+    return total / count if count else None
+
+
+# published peaks of one H100 SXM: f32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def kernel_bound_us(kind, T, B, K, nact):
+    """The least time the card could take, in microseconds, and what
+    bounds it: 5 flops per point and live column (two subtractions, two
+    products, one sum) over the f32 peak, against every input byte read
+    once (points, the live columns, the mask for K1, nact) and every
+    output byte written once (labels, distances, K1's (T, 3, K) sums)
+    over the memory rate."""
+    n, live = T * B, min(nact, K)
+    flops = 5 * n * live
+    byts = n * (8 + 4 + 4) + 8 * live + 4
+    if kind == "k1":
+        byts += n + 12 * T * K
+    ops_us = flops / PEAK_F32_FLOPS * 1e6
+    bytes_us = byts / PEAK_BYTES_PER_S * 1e6
+    return max(ops_us, bytes_us), ("operations" if ops_us >= bytes_us
+                                   else "bytes")
+
+
+# the shapes the paths give the kernels, each with the seed of its inputs:
+# K1 on the capped sweep; K2 on the uncapped sweep, on the non-quirk sweep
+# (the first 128 rows of a table of 2048) and once per frame in
+# landmark_map.update (all beams at L=1024, compacted beams at L=2048)
+KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
+                 ("k2", (1833, 48, 128), 7), ("k2", (1, 181, 1024), 3),
+                 ("k2", (1, 48, 2048), 8))
+# K2 shapes whose table is a view of the first rows of one this wide, as
+# the non-quirk sweep passes it
+TABLE_WIDTH = {(1833, 48, 128): 2048}
+KERNEL_NAME_PART = {"k1": "assoc_sums", "k2": "nearest_landmark"}
+
+
+def shape_inputs(kind, shape):
+    """The inputs of one row of KERNEL_SHAPES (any other shape: seed 9);
+    a K2 table in TABLE_WIDTH is the first rows of a wider one."""
+    seed = {s[:2]: s[2] for s in KERNEL_SHAPES}.get((kind, shape), 9)
+    T, B, K = shape
+    wide = TABLE_WIDTH.get(shape, K) if kind == "k2" else K
+    pts, mp, mask = kernel_inputs(T, B, wide, seed=seed, pick_from=K)
+    return pts, mp[:K], mask
+
+
+def kernel_call(kind, shape, nact, plain=False):
+    """A closure that calls the kernel's wrapper (``plain``: its plain
+    version) at ``shape`` with ``nact`` live columns, on inputs that stay
+    where they are (warm in L2, as the callers find them)."""
+    import torch
+    from icm_slam_tpu_torch.ops import assoc as k2
+    from icm_slam_tpu_torch.ops import assoc_sums as k1
+    pts, mp, mask = shape_inputs(kind, shape)
+    n = torch.tensor(nact, dtype=torch.int32, device="cuda")
+    if kind == "k1":
+        if plain:
+            return lambda: k1.associate_and_sums_plain(pts, mp, mask, n, 1.0)
+        return lambda: k1.associate_and_sums(pts, mp, mask, n, 1.0)
+    if plain:
+        return lambda: k2.nearest_landmark_plain(pts, mp, n)
+    return lambda: k2.nearest_landmark(pts, mp, n)
+
+
+def kernel_variant(kind, shape):
+    """The launch variant the wrapper takes at this shape, as a string."""
+    from icm_slam_tpu_torch.ops import assoc as k2
+    from icm_slam_tpu_torch.ops import assoc_sums as k1
+    mod = k2 if kind == "k2" else k1
+    if not hasattr(mod, "launch_plan"):
+        return "one launch shape"
+    plan = mod.launch_plan(shape[0] * shape[1], shape[2]) if kind == "k2" \
+        else mod.launch_plan(*shape)
+    return " ".join(f"{k}={v}" for k, v in plan._asdict().items())
+
+
+def kernel_row(kind, shape, nact, profiled=True):
+    """One row of the kernel table, every time measured here."""
+    fn = kernel_call(kind, shape, nact)
+    small = shape[0] == 1
+    own = graph_us(fn, reps=400 if small else 100)
+    issue = cuda_ms(fn, reps=400 if small else 100) * 1e3
+    bound, by = kernel_bound_us(kind, *shape, nact)
+    plain_ms = cuda_ms(kernel_call(kind, shape, nact, plain=True), reps=10)
+    row = dict(kernel=kind, shape=list(shape), nact=nact,
+               variant=kernel_variant(kind, shape), own_us=own,
+               issue_us=issue, bound_us=bound, bound_by=by,
+               share_of_bound=bound / own, plain_ms=plain_ms)
+    if profiled:
+        row["profiler_us"] = profiler_us(fn, KERNEL_NAME_PART[kind], 50)
+    return row
+
+
+def launch_floor():
+    """The card's floor for one launch: K2 on one point against a table of
+    one column, none of them live, timed like every row."""
+    fn = kernel_call("k2", (1, 1, 1), 0)
+    return dict(own_us=graph_us(fn, reps=400),
+                issue_us=cuda_ms(fn, reps=400) * 1e3,
+                profiler_us=profiler_us(fn, KERNEL_NAME_PART["k2"], 50))
+
+
+def kernel_table(nacts_as_run, profiled=True):
+    """Rows for every shape at nact = the table's width and at each live
+    count the runs left (``nacts_as_run``: kind -> counts)."""
+    rows = []
+    for kind, shape, _ in KERNEL_SHAPES:
+        for nact in [shape[2]] + sorted(set(nacts_as_run[kind]),
+                                        reverse=True):
+            rows.append(kernel_row(kind, shape, nact, profiled))
+    return rows
+
+
+def time_kernels_main(root, nacts):
+    """``--time-kernels ROOT K1NACTS K2NACTS``: the kernel table of the
+    package under ROOT as one JSON line.  The old-against-new turns run
+    this in a process of its own for each turn, so a checkout of another
+    commit can be timed on the same card in the same call."""
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no GPU")
+    from icm_slam_tpu_torch.ops import _build
+    _build.library()
+    print(json.dumps(dict(root=os.path.relpath(root, HERE),
+                          floor=launch_floor(),
+                          rows=kernel_table(nacts))), flush=True)
+
+
+def k2_variants_timed(nacts):
+    """Own duration of both variants of K2 (32 lanes a point at 256
+    threads a block, the grouped kernel at 128) at each of its shapes, at
+    nact = the table's width and at the live counts the runs left, with
+    the variant ``launch_plan`` picks: the choice, shown where it is made."""
+    from icm_slam_tpu_torch.ops import assoc as k2
+    out = []
+    for kind, shape, _ in KERNEL_SHAPES:
+        if kind != "k2":
+            continue
+        T, B, L = shape
+        pts, mp, _ = shape_inputs(kind, shape)
+        counts = [L] + sorted({n for n in nacts if n < L}, reverse=True)
+        row = dict(shape=list(shape), nact=counts,
+                   picked=k2.launch_plan(T * B, L).lanes, own_us={})
+        for lanes, threads in ((32, 256), (1, 128)):
+            plan = k2.plan_for(T * B, L, lanes=lanes, threads=threads)
+            times = []
+            for n in counts:
+                nact = count_tensor(n)
+                times.append(graph_us(
+                    lambda: k2.launch(pts, mp, nact, plan),
+                    reps=400 if T == 1 else 100, replays=5))
+            row["own_us"][f"lanes={lanes} threads={threads}"] = times
+        out.append(row)
+    return out
+
+
+def kernel_inputs(T, B, K, seed, pick_from=None):
+    """Beam points scattered around a random map, as on the main path
+    (``pick_from``: around its first columns only)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     mp = rng.uniform(-15.0, 15.0, (K, 2)).astype(np.float32)
-    pick = rng.integers(0, K, (T, B))
+    pick = rng.integers(0, pick_from or K, (T, B))
     pts = (mp[pick] + rng.normal(0.0, 0.8, (T, B, 2))).astype(np.float32)
     mask = rng.uniform(size=(T, B)) < 0.7
     dev = torch.device("cuda")
@@ -122,58 +373,187 @@ def kernel_inputs(T, B, K, seed):
             torch.from_numpy(mask).to(dev))
 
 
+def count_tensor(n):
+    import torch
+    return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+
+def hold_k1(pts, mp, mask, n, dist_thr, what):
+    """K1 against its plain version: labels exact, d2min bitwise, sums
+    within 1e-4 (f32 sums in another order), and the sums of a second run
+    bitwise those of the first (no atomics).  Returns the sums' error."""
+    import torch
+    from icm_slam_tpu_torch.ops import assoc_sums as k1
+    nact = count_tensor(n)
+    lab, d2, sums = k1.associate_and_sums(pts, mp, mask, nact, dist_thr)
+    again = k1.associate_and_sums(pts, mp, mask, nact, dist_thr)[2]
+    lab_p, d2_p, sums_p = k1.associate_and_sums_plain(pts, mp, mask, nact,
+                                                      dist_thr)
+    torch.cuda.synchronize()
+    check(torch.equal(lab, lab_p), f"K1 labels differ, {what} nact={n}")
+    check(torch.equal(d2, d2_p), f"K1 d2min not bitwise, {what} nact={n}")
+    check(torch.equal(sums, again),
+          f"K1 sums differ between two runs, {what} nact={n}")
+    e = float((sums - sums_p).abs().max()) if sums.numel() else 0.0
+    check(e <= 1e-4, f"K1 sums differ by {e}, {what} nact={n}")
+    return e
+
+
 def phase_k1(T=1833, B=48, K=128, dist_thr=1.0):
     import torch
     from icm_slam_tpu_torch.ops import assoc_sums as k1
     pts, mp, mask = kernel_inputs(T, B, K, seed=1)
     err = 0.0
-    for n in (0, 1, 37, K):
-        nact = torch.tensor(n, dtype=torch.int32, device="cuda")
-        lab, d2, sums = k1.associate_and_sums(pts, mp, mask, nact, dist_thr)
-        lab_p, d2_p, sums_p = k1.associate_and_sums_plain(pts, mp, mask,
-                                                          nact, dist_thr)
-        torch.cuda.synchronize()
-        check(torch.equal(lab, lab_p), f"K1 labels differ at nact={n}")
-        check(torch.equal(d2, d2_p), f"K1 d2min not bitwise at nact={n}")
-        e = float((sums - sums_p).abs().max())
-        check(e <= 1e-4, f"K1 sums differ by {e} at nact={n}")
-        err = max(err, e)
-    nact = torch.tensor(K, dtype=torch.int32, device="cuda")
+    for n in (0, 1, 7, 9, 37, K):
+        err = max(err, hold_k1(pts, mp, mask, n, dist_thr, "main shape"))
+    # beams beyond one round of either pass, a width that is no multiple
+    # of 4 (scalar stores) and duplicated columns in different lanes
+    odd = []
+    for (t, b, k), seed in (((65, 181, 128), 11), ((33, 48, 130), 12),
+                            ((9, 5, 8), 13)):
+        p2, m2, k2mask = kernel_inputs(t, b, k, seed=seed)
+        m2[k // 2] = m2[1]
+        m2[k - 1] = m2[1]
+        for n in (0, 3, k - 1, k):
+            err = max(err, hold_k1(p2, m2, k2mask, n, 2.0, f"{(t, b, k)}"))
+        odd.append([t, b, k])
+    nact = count_tensor(K)
     ms, plain_ms = time_pair(
         lambda: k1.associate_and_sums(pts, mp, mask, nact, dist_thr),
         lambda: k1.associate_and_sums_plain(pts, mp, mask, nact, dist_thr),
         reps=50)
-    emit(phase="k1_vs_plain", shape=[T, B, K], nact=[0, 1, 37, K],
-         labels="exact", d2min="bitwise", sums_max_abs_err=err, ms=ms,
-         plain_ms=plain_ms)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    emit(phase="k1_vs_plain", shape=[T, B, K], nact=[0, 1, 7, 9, 37, K],
+         other_shapes=odd, labels="exact", d2min="bitwise",
+         sums_run_to_run="bitwise", sums_max_abs_err=err,
+         issue_interval_ms=ms, plain_ms=plain_ms,
+         plan=k1.launch_plan(T, B, K)._asdict())
+    return dict(max_abs_err=err, plain_ms=plain_ms)
+
+
+def hold_k2(pts, mp, n, plan, what):
+    """K2 with ``plan`` (None: the wrapper's own choice) against its plain
+    version: labels exact, distances within 1e-5.  Returns the error."""
+    import torch
+    from icm_slam_tpu_torch.ops import assoc as k2
+    nact = count_tensor(n)
+    if plan is None:
+        lab, dist = k2.nearest_landmark(pts, mp, nact)
+    else:
+        lab, dist = k2.launch(pts, mp, nact, plan)
+    lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
+    torch.cuda.synchronize()
+    check(torch.equal(lab, lab_p), f"K2 labels differ, {what} nact={n}")
+    fin = torch.isfinite(dist_p)
+    check(torch.equal(fin, torch.isfinite(dist)),
+          f"K2 infinite distances differ, {what} nact={n}")
+    e = float((dist - dist_p)[fin].abs().max()) if bool(fin.any()) else 0.0
+    check(e <= 1e-5, f"K2 distances differ by {e}, {what} nact={n}")
+    return e
+
+
+def k2_variants(n_pts, L, columns=None):
+    """Every variant of K2 as a plan for ``n_pts`` points: 32 lanes a
+    point, and the grouped kernel at three block sizes; ``columns`` narrows
+    the shared-memory chunk."""
+    from icm_slam_tpu_torch.ops import assoc as k2
+    kw = {} if columns is None else dict(columns=columns)
+    return [k2.plan_for(n_pts, L, lanes=32, **kw),
+            k2.plan_for(n_pts, L, lanes=1, threads=64, **kw),
+            k2.plan_for(n_pts, L, lanes=1, threads=128, **kw),
+            k2.plan_for(n_pts, L, lanes=1, threads=256, **kw)]
+
+
+def tie_inputs():
+    """Two tables on which d^2 ties exactly, each with its points.
+
+    The first is built of one block of 40 columns, its mirror image (equal
+    d^2 from the origin) and copies of both, with three points at and an
+    ulp off the origin.  The second holds 64 distinct columns four times
+    each: as neighbouring pairs, then shuffled, then in order, so that
+    every one of 181 random points meets a four-way tie whose columns lie
+    in neighbouring lanes, in lanes any distance apart and, with a chunk
+    of 32 or 64 columns, in different chunks."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(6)
+    base = rng.uniform(0.5, 0.9, (40, 2)).astype(np.float32)
+    mirror = np.concatenate([base, -base, base, base[::-1], -base[:13],
+                             base, -base[::-1]])
+    origin = np.zeros((1, 3, 2), np.float32)
+    origin[0, 1] = 1e-7
+    origin[0, 2, 0] = -1e-7
+    cols = rng.uniform(-15, 15, (64, 2)).astype(np.float32)
+    order = np.concatenate([np.repeat(np.arange(64), 2),
+                            rng.permutation(64), np.arange(64)])
+    pts = (cols[rng.integers(0, 64, (1, 181))]
+           + rng.normal(0, 0.8, (1, 181, 2))).astype(np.float32)
+    return [(torch.from_numpy(p).cuda(),
+             torch.from_numpy(np.ascontiguousarray(m)).cuda())
+            for p, m in ((origin, mirror), (pts, cols[order]))]
+
+
+def hold_k2_ties(what):
+    """Every variant, resident and in chunks of 128, 64 and 32 columns
+    (the grouped kernel scans a chunk under 128 column by column), on the
+    tie tables: labels and distances equal to the plain version's."""
+    import torch
+    from icm_slam_tpu_torch.ops import assoc as k2
+    for tie_pts, tie_map in tie_inputs():
+        L, n_pts = tie_map.shape[0], tie_pts.shape[1]
+        for columns in (None, 128, 64, 32):
+            for plan in [None] + k2_variants(n_pts, L, columns):
+                for n in (1, 39, 40, 41, 80, 120, 173, L):
+                    nact = count_tensor(n)
+                    lab, dist = (k2.nearest_landmark(tie_pts, tie_map, nact)
+                                 if plan is None else
+                                 k2.launch(tie_pts, tie_map, nact, plan))
+                    lab_p, dist_p = k2.nearest_landmark_plain(
+                        tie_pts, tie_map, nact)
+                    check(torch.equal(lab, lab_p)
+                          and torch.equal(dist, dist_p),
+                          f"K2 breaks a d^2 tie otherwise than its plain "
+                          f"version: {what} plan={plan} nact={n}")
+
+
+def hold_k2_shape(shape, nacts):
+    """K2 at one of KERNEL_SHAPES, through the wrapper and with every
+    variant whichever the wrapper picks; returns the largest error."""
+    T, B, L = shape
+    pts, mp, _ = shape_inputs("k2", shape)
+    err = 0.0
+    for plan in [None] + k2_variants(T * B, L):
+        for n in nacts:
+            err = max(err, hold_k2(pts, mp, n, plan, f"{shape} {plan}"))
+    return err
 
 
 def phase_k2(T=1833, B=48, L=1024):
-    import torch
     from icm_slam_tpu_torch.ops import assoc as k2
-    pts, mp, _ = kernel_inputs(T, B, L, seed=2)
-    err = 0.0
-    for n in (0, 1, 37, L):
-        nact = torch.tensor(n, dtype=torch.int32, device="cuda")
-        lab, dist = k2.nearest_landmark(pts, mp, nact)
-        lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
-        torch.cuda.synchronize()
-        check(torch.equal(lab, lab_p), f"K2 labels differ at nact={n}")
-        fin = torch.isfinite(dist_p)
-        check(torch.equal(fin, torch.isfinite(dist)),
-              f"K2 infinite distances differ at nact={n}")
-        e = float((dist - dist_p)[fin].abs().max()) if bool(fin.any()) \
-            else 0.0
-        check(e <= 1e-5, f"K2 distances differ by {e} at nact={n}")
-        err = max(err, e)
-    nact = torch.tensor(L, dtype=torch.int32, device="cuda")
+    pts, mp, _ = shape_inputs("k2", (T, B, L))
+    err = hold_k2_shape((T, B, L), (0, 1, 37, 127, 128, 1000, L))
+    # the non-quirk sweep's shape: the first 128 rows of a wider table,
+    # where the grouped kernel turns to its column-by-column scan
+    check(k2.launch_plan(T * B, 128).lanes == 1, "(1833, 48, 128) not grouped")
+    err = max(err, hold_k2_shape((T, B, 128), (0, 1, 37, 96, 127, 128)))
+    # a table wider than a block keeps in shared memory: two chunks, the
+    # last one ragged
+    W = k2.RESIDENT_COLUMNS + 904
+    pw, mw, _ = kernel_inputs(16, 181, W, seed=5)
+    for plan in [None] + k2_variants(16 * 181, W):
+        for n in (k2.RESIDENT_COLUMNS + 1, W - 3, W):
+            err = max(err, hold_k2(pw, mw, n, plan, f"wide table {plan}"))
+    hold_k2_ties("phase 3")
+    nact = count_tensor(L)
     ms, plain_ms = time_pair(lambda: k2.nearest_landmark(pts, mp, nact),
                              lambda: k2.nearest_landmark_plain(pts, mp, nact),
                              reps=20)
-    emit(phase="k2_vs_plain", shape=[T, B, L], nact=[0, 1, 37, L],
-         labels="exact", dist_max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    emit(phase="k2_vs_plain", shape=[T, B, L], nact=[0, 1, 37, 127, 128,
+                                                      1000, L],
+         variants=[p._asdict() for p in k2_variants(T * B, L)],
+         other_shapes=[[T, B, 128], [16, 181, W]], labels="exact",
+         ties="exact", dist_max_abs_err=err, issue_interval_ms=ms,
+         plain_ms=plain_ms, plan=k2.launch_plan(T * B, L)._asdict())
+    return dict(max_abs_err=err, plain_ms=plain_ms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,12 +576,10 @@ def golden_case(g, prefix):
 
 
 def phase_main(g, smi):
-    """Run 4 and 5 with the launch counters reset just before them."""
+    """Run 4 and 5 with the launch counters reset just before each."""
     import numpy as np
     from icm_slam_tpu_torch.config import ICMConfig
     from icm_slam_tpu_torch.data.datasets import world_checksum
-    from icm_slam_tpu_torch.ops import assoc as k2
-    from icm_slam_tpu_torch.ops import assoc_sums as k1
     from icm_slam_tpu_torch.solver.icm import prepare, resolve_config, run
 
     gm = golden_case(g, "main")
@@ -218,18 +596,17 @@ def phase_main(g, smi):
           and resolved.obs_cap == int(gm["obs_cap"]),
           "resolved caps differ from the golden's")
 
-    k1.LAUNCHES = 0
-    k2.LAUNCHES = 0
-    res = run(ds, cfg, "cuda")
-    main_k1, main_k2 = k1.LAUNCHES, k2.LAUNCHES
-    res_u = run(ds, ICMConfig(N=3, map_run_cap=0), "cuda")
-    launches = {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES}
-    check(main_k1 == cfg.N and main_k2 == 0,
-          f"main run launched K1 {main_k1}x, K2 {main_k2}x; want "
+    res, n_main = counted(lambda: run(ds, cfg, "cuda"))
+    res_u, n_unc = counted(
+        lambda: run(ds, ICMConfig(N=3, map_run_cap=0), "cuda"))
+    main_k1 = n_main["k1"]
+    launches = {"main": n_main, "uncapped": n_unc}
+    check(main_k1 == cfg.N and n_main["k2"] == 0,
+          f"main run launched K1 {main_k1}x, K2 {n_main['k2']}x; want "
           f"{cfg.N} and 0")
-    check(launches["k1"] == main_k1 and launches["k2"] == 3,
-          f"uncapped run launched K1 {launches['k1'] - main_k1}x, K2 "
-          f"{launches['k2']}x; want 0 and 3")
+    check(n_unc["k1"] == 0 and n_unc["k2"] == 3,
+          f"uncapped run launched K1 {n_unc['k1']}x, K2 {n_unc['k2']}x; "
+          f"want 0 and 3")
 
     census = res.map_pos.shape[0]
     check(all(np.isfinite(a).all() for a in
@@ -261,10 +638,11 @@ def phase_main(g, smi):
     check(all(np.isfinite(a).all() for a in (res_u.x, res_u.map_pos)),
           "non-finite output in the uncapped run")
     emit(phase="uncapped_branch", config="ICMConfig(N=3, map_run_cap=0)",
-         k2_launches=launches["k2"], census=res_u.map_pos.shape[0],
+         k2_launches=n_unc["k2"], census=res_u.map_pos.shape[0],
          init_s=res_u.timings["init_s"],
          refine_per_iter_s=res_u.timings["refine_per_iter_s"], card=smi)
-    return launches
+    # the live counts the kernels met at the end of these runs
+    return launches, {"k1": [census], "k2": [res_u.map_pos.shape[0]]}
 
 
 def phase_small(g):
@@ -361,28 +739,42 @@ def phase_profile(smi):
     w = weights(cfg, "cuda")
     seed = icm.seed_map(data, x0, cfg)
     state, x, _ = init_sweep_batched(data, seed, x0, cfg, w)
+    raw_init = int(state.nact)
     emit(phase="init_profile", **launches_and_syncs(
         lambda: init_sweep_batched(data, seed, x0, cfg, w)),
         note="init_sweep_batched (58 chunks of 32 frames, R=2)", card=smi)
 
     cur = filter_map(state, cfg.cota, cfg.dist_thr, live_cap=cfg.map_run_cap)
     data = icm.hoist_compaction(data, cfg)
-    cur, x, _ = icm._refine_step(data, cur, x, cfg, w)
+    first_nact = int(cur.nact)
+    cur, x, wit = icm._refine_step(data, cur, x, cfg, w)
     emit(phase="refine_sweep_profile", **launches_and_syncs(
         lambda: icm._refine_step(data, cur, x, cfg, w)),
         note="one refine sweep + map filter, after one warm sweep",
+        live_columns=dict(raw_after_init=raw_init,
+                          first_sweep_sees=first_nact,
+                          raw_after_first_sweep=int(wit[0]),
+                          second_sweep_sees=int(cur.nact)),
         card=smi)
+    # the live counts K1 meets in the first sweeps, before the map settles,
+    # and the raw count an init leaves, which the per-frame K2 of a causal
+    # init grows towards
+    return {"k1": [first_nact, int(cur.nact)], "k2": [raw_init]}
 
 
 def counted(fn):
     """``fn()`` with both kernels' launch counters set to 0 just before it;
-    returns (result, {"k1": n, "k2": n}) read just after."""
+    returns (result, {"k1": n, "k2": n, "shapes": {(kernel, shape): n}})
+    read just after."""
     from icm_slam_tpu_torch.ops import assoc as k2
     from icm_slam_tpu_torch.ops import assoc_sums as k1
-    k1.LAUNCHES = 0
-    k2.LAUNCHES = 0
+    for mod in (k1, k2):
+        mod.LAUNCHES = 0
+        mod.LAUNCH_SHAPES.clear()
     out = fn()
-    return out, {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES}
+    shapes = {(kind, shape): n for kind, mod in (("k1", k1), ("k2", k2))
+              for shape, n in mod.LAUNCH_SHAPES.items()}
+    return out, {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES, "shapes": shapes}
 
 
 def big_world(golden, prefix):
@@ -496,52 +888,32 @@ def phase_nonquirk_jacobi(ge, smi):
          k2_launches=n["k2"], k1_launches=n["k1"], **agree,
          init_s=t["init_s"], refine_per_iter_s=t["refine_per_iter_s"],
          card=smi)
-    return n
+    return n, res
 
 
 def phase_k2_per_frame(B=181, L=1024):
-    """K2 at the shape every update() gives it, and on d^2 ties."""
-    import numpy as np
-    import torch
+    """K2 at the shapes every update() gives it, and on d^2 ties."""
     from icm_slam_tpu_torch.ops import assoc as k2
-    pts, mp, _ = kernel_inputs(1, B, L, seed=3)
+    pts, mp, _ = shape_inputs("k2", (1, B, L))
     err = 0.0
-    for n in (0, 1, 37, L):
-        nact = torch.tensor(n, dtype=torch.int32, device="cuda")
-        lab, dist = k2.nearest_landmark(pts, mp, nact)
-        lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
-        torch.cuda.synchronize()
-        check(torch.equal(lab, lab_p), f"per-frame K2 labels differ at "
-                                       f"nact={n}")
-        fin = torch.isfinite(dist_p)
-        check(torch.equal(fin, torch.isfinite(dist)),
-              f"per-frame K2 infinite distances differ at nact={n}")
-        e = float((dist - dist_p)[fin].abs().max()) if bool(fin.any()) \
-            else 0.0
-        check(e <= 1e-5, f"per-frame K2 distances differ by {e} at nact={n}")
-        err = max(err, e)
-    # ties: mirrored columns (equal d^2) and points an ulp off the origin
-    rng = np.random.default_rng(6)
-    base = rng.uniform(0.5, 0.9, (40, 2)).astype(np.float32)
-    tie_map = torch.from_numpy(np.concatenate([base, -base, base])).cuda()
-    tie_pts = torch.zeros((1, 3, 2), device="cuda")
-    tie_pts[0, 1] = 1e-7
-    tie_pts[0, 2, 0] = -1e-7
-    for n in (1, 40, 80, 120):
-        nact = torch.tensor(n, dtype=torch.int32, device="cuda")
-        lab, dist = k2.nearest_landmark(tie_pts, tie_map, nact)
-        lab_p, dist_p = k2.nearest_landmark_plain(tie_pts, tie_map, nact)
-        check(torch.equal(lab, lab_p) and torch.equal(dist, dist_p),
-              f"K2 breaks a d^2 tie otherwise than its plain version at "
-              f"nact={n}")
-    nact = torch.tensor(L, dtype=torch.int32, device="cuda")
+    for shape in ((1, B, L), (1, 48, 2048)):
+        plan = k2.launch_plan(shape[1], shape[2])
+        check(plan.lanes == 32 and plan.blocks > 1,
+              f"per-frame shape {shape} not spread over blocks: {plan}")
+        width = shape[2]
+        err = max(err, hold_k2_shape(
+            shape, (0, 1, 31, 33, 37, 127, 128, width - 1, width)))
+    hold_k2_ties("phase 10")
+    nact = count_tensor(L)
     ms, plain_ms = time_pair(lambda: k2.nearest_landmark(pts, mp, nact),
                              lambda: k2.nearest_landmark_plain(pts, mp, nact),
                              reps=200)
-    emit(phase="k2_per_frame_vs_plain", shape=[1, B, L], nact=[0, 1, 37, L],
-         labels="exact", ties="exact", dist_max_abs_err=err, ms=ms,
-         plain_ms=plain_ms)
-    return dict(shape=[1, B, L], max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    emit(phase="k2_per_frame_vs_plain", shape=[1, B, L],
+         other_shapes=[[1, 48, 2048]],
+         nact=[0, 1, 31, 33, 37, 127, 128, L - 1, L], labels="exact",
+         ties="exact", dist_max_abs_err=err, issue_interval_ms=ms,
+         plain_ms=plain_ms, plan=k2.launch_plan(B, L)._asdict())
+    return dict(max_abs_err=err, plain_ms=plain_ms)
 
 
 def _files_written(paths, what):
@@ -563,11 +935,13 @@ def phase_entry_points(seq_res, smi):
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     ds, _ = world_1833()
-    out, totals = {}, {"k1": 0, "k2": 0}
+    out, totals = {}, {"k1": 0, "k2": 0, "shapes": {}}
 
     def tally(n):
-        for k in totals:
+        for k in ("k1", "k2"):
             totals[k] += n[k]
+        for key, count in n["shapes"].items():
+            totals["shapes"][key] = totals["shapes"].get(key, 0) + count
 
     # offline, checkpointed every 2 sweeps, then resumed from sweep 1
     ck = os.path.join(WORK, "ckpt")
@@ -655,6 +1029,107 @@ def phase_entry_points(seq_res, smi):
     return totals
 
 
+PARENT_ROOT = os.path.join(HERE, "build", "parent")
+
+
+def phase_old_vs_new(nacts, smi):
+    """The kernel table of another commit's package against this one's on
+    this card, in turns old, new, new, old, each turn a process of its own
+    (``--time-kernels``).  The other commit is whatever checkout of the
+    package lies under build/parent/ (for instance ``git archive HEAD~1
+    icm_slam_tpu_torch | tar -x -C build/parent``); it is never committed,
+    and without it this phase reports that and measures nothing."""
+    if not os.path.isdir(os.path.join(PARENT_ROOT, "icm_slam_tpu_torch")):
+        emit(phase="old_vs_new", skipped="no package under build/parent/")
+        return
+    arg = [",".join(str(v) for v in nacts[k]) for k in ("k1", "k2")]
+    turns = []
+    for who, root in (("old", PARENT_ROOT), ("new", HERE), ("new", HERE),
+                      ("old", PARENT_ROOT)):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-kernels",
+             root, *arg], cwd=HERE, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0,
+              f"--time-kernels {root} exited {proc.returncode}:\n"
+              f"{proc.stderr[-3000:]}")
+        turns.append((who, json.loads(proc.stdout.strip().splitlines()[-1])))
+    rows = []
+    for i, first in enumerate(turns[0][1]["rows"]):
+        row = {k: first[k] for k in ("kernel", "shape", "nact", "bound_us")}
+        for key in ("own_us", "issue_us"):
+            for who in ("old", "new"):
+                row[f"{who}_{key}"] = [t["rows"][i][key] for w, t in turns
+                                       if w == who]
+        row["old_variant"] = turns[0][1]["rows"][i]["variant"]
+        row["new_variant"] = turns[1][1]["rows"][i]["variant"]
+        rows.append(row)
+    emit(phase="old_vs_new", order=[w for w, _ in turns],
+         floor_own_us={w + str(i): t["floor"]["own_us"]
+                       for i, (w, t) in enumerate(turns)},
+         rows=rows, card=smi)
+
+
+# which run's launches a shape's row reports, and what that run is
+LAUNCHED_BY = {
+    ("k1", (1833, 48, 128)): ("main", "the default run, N=30 (phase 4)"),
+    ("k2", (1833, 48, 1024)): ("uncapped",
+                               "the uncapped run, N=3 (phase 5)"),
+    ("k2", (1833, 48, 128)): ("nonquirk",
+                              "the non-quirk Jacobi run, N=3 (phase 9)"),
+    ("k2", (1, 181, 1024)): ("sequential",
+                             "the sequential run, N=2 (phase 8)"),
+    ("k2", (1, 48, 2048)): ("nonquirk",
+                            "the non-quirk Jacobi run's causal init "
+                            "(phase 9)")}
+
+
+def check_shapes_covered(launches):
+    """Every shape a counted run gave a kernel must have its rows in the
+    kernel table (and with them its check against the plain version)."""
+    table = {s[:2] for s in KERNEL_SHAPES}
+    met = {key for n in launches.values() for key in n["shapes"]}
+    check(met <= table, f"shapes launched on a path without a row in "
+                        f"KERNEL_SHAPES: {sorted(met - table)}")
+    for key, (run, _) in LAUNCHED_BY.items():
+        check(launches[run]["shapes"].get(key, 0) > 0,
+              f"the {run} run never launched {key}")
+
+
+def kernels_line(launches, checks, rows):
+    """The contract's line: one entry per kernel with the main shape's
+    numbers on top and every shape's row under ``shapes``."""
+    def entry(name, source, replaces, kind, shape):
+        main_row = next(r for r in rows if r["kernel"] == kind
+                        and r["shape"] == list(shape)
+                        and r["nact"] == shape[2])
+        shapes = []
+        for r in rows:
+            if r["kernel"] != kind:
+                continue
+            run, by = LAUNCHED_BY[(kind, tuple(r["shape"]))]
+            shapes.append(dict(
+                r, launched_by=by, library_ms=None,
+                launches=launches[run]["shapes"][(kind, tuple(r["shape"]))]))
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches["all"][kind],
+            max_abs_err=checks[kind]["max_abs_err"],
+            ms=main_row["own_us"] / 1e3, plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_us"] / 1e3,
+            bound_by=main_row["bound_by"], library_ms=None,
+            issue_interval_ms=main_row["issue_us"] / 1e3, shapes=shapes)
+
+    return [
+        entry("associate_and_sums", "icm_slam_tpu_torch/csrc/assoc_sums.cu",
+              "icm_slam_tpu/ops/assoc_sums_pallas.py:70", "k1",
+              (1833, 48, 128)),
+        entry("nearest_landmark",
+              "icm_slam_tpu_torch/csrc/nearest_landmark.cu",
+              "icm_slam_tpu/ops/assoc_pallas.py:76", "k2",
+              (1833, 48, 1024))]
+
+
 def main():
     sys.path.insert(0, HERE)
     import numpy as np
@@ -686,34 +1161,45 @@ def main():
         walls[name] = time.perf_counter() - t
         return out
 
+    def kernel_timing(nacts):
+        emit(phase="launch_floor", **launch_floor(),
+             note="K2 on one point, a table of one column, nact=0", card=smi)
+        rows = kernel_table(nacts)
+        emit(phase="kernel_table", rows=rows, nact_as_run=nacts, card=smi)
+        emit(phase="k2_variants_timed", rows=k2_variants_timed(nacts["k2"]),
+             card=smi)
+        phase_old_vs_new(nacts, smi)
+        return rows
+
     k1 = timed("k1", phase_k1)
     k2 = timed("k2", phase_k2)
     g = np.load(GOLDEN)
-    launches = timed("main_uncapped", phase_main, g, smi)
+    launches, nacts = timed("main_uncapped", phase_main, g, smi)
     timed("small", phase_small, g)
-    timed("profile", phase_profile, smi)
+    for kind, counts in timed("profile", phase_profile, smi).items():
+        nacts[kind] += counts
     ge = np.load(GOLDEN_ENGINES)
     n8, seq_res = timed("sequential", phase_sequential, ge, smi)
-    n9 = timed("nonquirk_jacobi", phase_nonquirk_jacobi, ge, smi)
+    nacts["k2"].append(seq_res.map_pos.shape[0])
+    n9, nq_res = timed("nonquirk_jacobi", phase_nonquirk_jacobi, ge, smi)
+    nacts["k2"].append(nq_res.map_pos.shape[0])
     k2_frame = timed("k2_per_frame", phase_k2_per_frame)
     n11 = timed("entry_points", phase_entry_points, seq_res, smi)
+    launches.update(sequential=n8, nonquirk=n9, entry_points=n11)
+    check_shapes_covered(launches)
+    emit(phase="launches_by_shape", **{
+        run: {f"{kind} {list(shape)}": c
+              for (kind, shape), c in n["shapes"].items()}
+        for run, n in launches.items()})
+    rows = timed("kernel_timing", kernel_timing, nacts)
     emit(phase="wall_seconds", **walls,
          since_build=time.perf_counter() - t0)
-    for n in (n8, n9, n11):
-        for k in launches:
-            launches[k] += n[k]
+    launches["all"] = {k: launches["main"][k] + launches["uncapped"][k]
+                       + n8[k] + n9[k] + n11[k] for k in ("k1", "k2")}
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"])
 
-    kernels = [
-        dict(name="associate_and_sums", route="cuda",
-             source="icm_slam_tpu_torch/csrc/assoc_sums.cu",
-             replaces="icm_slam_tpu/ops/assoc_sums_pallas.py:70",
-             launches=launches["k1"], **k1),
-        dict(name="nearest_landmark", route="cuda",
-             source="icm_slam_tpu_torch/csrc/nearest_landmark.cu",
-             replaces="icm_slam_tpu/ops/assoc_pallas.py:76",
-             launches=launches["k2"], **k2, per_frame=k2_frame),
-    ]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels_line(
+        launches, {"k1": k1, "k2": k2}, rows)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -721,4 +1207,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 5 and sys.argv[1] == "--time-kernels":
+        time_kernels_main(os.path.abspath(sys.argv[2]), {
+            "k1": [int(v) for v in sys.argv[3].split(",")],
+            "k2": [int(v) for v in sys.argv[4].split(",")]})
+    else:
+        main()

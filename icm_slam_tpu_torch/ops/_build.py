@@ -10,6 +10,7 @@ then ``/usr/local/cuda/bin``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -17,6 +18,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -28,10 +31,13 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the exported launchers; each returns a cudaError_t
 _SIGNATURES = {
-    # pts, map, mask, nact, T, B, K, thr2, lab, d2min, sums, stream
-    "icm_assoc_sums": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
-    # pts, map, nact, n_pts, L, lab, dist, stream
-    "icm_nearest_landmark": (_P, _P, _P, _I, _I, _P, _P, _P),
+    # pts, map, mask, nact, T, B, K, thr2, threads, shmem, lab, d2min, sums,
+    # stream
+    "icm_assoc_sums": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
+                       _P),
+    # pts, map, nact, n_pts, L, lanes, blocks, threads, shmem, lab, dist,
+    # stream
+    "icm_nearest_landmark": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -55,9 +61,13 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libicm_kernels_{h.hexdigest()[:16]}.so")
@@ -97,6 +107,8 @@ def _compile(out: str) -> None:
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             path = library_path()
@@ -116,3 +128,42 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+def check_pairs_aligned(**tensors) -> None:
+    """Raise unless every (..., 2) float32 tensor starts on an 8-byte
+    boundary: the kernels read and copy its rows as ``float2``, and a
+    contiguous view that starts on an odd float would fault on the card."""
+    for name, a in tensors.items():
+        if a.data_ptr() % 8:
+            raise ValueError(f"{name} must start on an 8-byte boundary "
+                             f"(its rows are read as float2)")
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device: nothing
+    when it already is, as in every single-card run."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``: inside
+    ``torch.cuda.graph`` that is the capturing stream."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def as_count(nact, device: torch.device):
+    """``nact`` as a 0-d int32 tensor on ``device``; a tensor that already
+    is one comes back as it is."""
+    if isinstance(nact, torch.Tensor) and nact.dtype == torch.int32 \
+            and nact.device == device:
+        return nact
+    return torch.as_tensor(nact, dtype=torch.int32, device=device)

@@ -143,3 +143,157 @@ def test_launch_error_raises():
     with pytest.raises(RuntimeError, match="cudaError_t 2"):
         _build.check(2, "icm_assoc_sums")
     _build.check(0, "icm_assoc_sums")
+
+
+# --- the kernels' lane split and launch plans, as far as a CPU reaches ---
+
+def _nact_cases(lanes, width):
+    return {"zero": 0, "one": 1, "lanes-1": max(lanes - 1, 0),
+            "lanes+1": lanes + 1, "all": width}
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("which", ["zero", "one", "lanes-1", "lanes+1",
+                                   "all"])
+def test_k2_plain_lanes_equal_serial(lanes, which):
+    """Columns split over strided lanes and combined by the kernel's rule
+    (smaller d2, then smaller index) give the serial result, exactly."""
+    pts, mp = _k2_inputs(T=4, B=181, L=256, seed=3)
+    nact = torch.tensor(_nact_cases(lanes, 256)[which], dtype=torch.int32)
+    lab, dist = k2.nearest_landmark_plain(tf32(pts), tf32(mp), nact,
+                                          lanes=lanes)
+    lab_1, dist_1 = k2.nearest_landmark_plain(tf32(pts), tf32(mp), nact)
+    assert torch.equal(lab, lab_1)
+    assert torch.equal(dist, dist_1)
+    assert lab.dtype == torch.int32
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("which", ["zero", "one", "lanes-1", "lanes+1",
+                                   "all"])
+def test_k1_plain_lanes_equal_serial(lanes, which):
+    pts, mp, mask = _k1_inputs()
+    nact = torch.tensor(_nact_cases(lanes, 128)[which], dtype=torch.int32)
+    out = k1.associate_and_sums_plain(tf32(pts), tf32(mp),
+                                      torch.from_numpy(mask), nact, 1.0,
+                                      lanes=lanes)
+    ref = k1.associate_and_sums_plain(tf32(pts), tf32(mp),
+                                      torch.from_numpy(mask), nact, 1.0)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_plain_lanes_keep_first_minimum_on_duplicates(lanes):
+    """Every column four times (neighbours, shuffled, in order): each
+    point's tie spans lanes, and the first column must win."""
+    rng = np.random.default_rng(5)
+    cols = rng.uniform(-15, 15, (64, 2)).astype(np.float32)
+    order = np.concatenate([np.repeat(np.arange(64), 2),
+                            rng.permutation(64), np.arange(64)])
+    mp = cols[order]
+    pts = (cols[rng.integers(0, 64, (3, 48))]
+           + rng.normal(0, 0.8, (3, 48, 2))).astype(np.float32)
+    mask = np.ones((3, 48), bool)
+    for nact in (2, 127, 129, 200, 256):
+        n = torch.tensor(nact, dtype=torch.int32)
+        lab, dist = k2.nearest_landmark_plain(tf32(pts), tf32(mp), n,
+                                              lanes=lanes)
+        lab_1, dist_1 = k2.nearest_landmark_plain(tf32(pts), tf32(mp), n)
+        assert torch.equal(lab, lab_1) and torch.equal(dist, dist_1)
+        # the winner is the first of its copies among the live columns
+        first = np.array([np.flatnonzero(order[:nact] == order[i])[0]
+                          for i in lab.numpy().ravel()])
+        assert np.array_equal(first, lab.numpy().ravel())
+        out = k1.associate_and_sums_plain(
+            tf32(pts), tf32(mp), torch.from_numpy(mask), n, 2.0, lanes=lanes)
+        ref = k1.associate_and_sums_plain(
+            tf32(pts), tf32(mp), torch.from_numpy(mask), n, 2.0)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+
+
+def test_lane_min_rejects_odd_lane_counts():
+    with pytest.raises(ValueError):
+        k2.lane_min(torch.zeros((2, 8)), 3)
+
+
+@pytest.mark.parametrize("n_pts,L,lanes", [
+    (1833 * 48, 1024, 1),        # the uncapped sweep
+    (1833 * 48, 128, 1),         # the non-quirk sweep's first columns
+    (181, 1024, 32),             # one frame in landmark_map.update
+    (181, 2048, 32),
+    (128 * 48, 1024, 1),
+    (1, 1, 32), (4096, 7, 32), (4097, 7, 1), (1000003, 30000, 1)])
+def test_k2_launch_plan_covers_points_within_shared_memory(n_pts, L, lanes):
+    plan = k2.launch_plan(n_pts, L)
+    assert plan.lanes == lanes
+    assert plan.blocks * plan.threads >= n_pts * plan.lanes
+    # no block without a point of its own
+    assert (plan.blocks - 1) * plan.threads < n_pts * plan.lanes
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.shmem % 256 == 0 and 256 <= plan.shmem <= 48 * 1024
+    assert plan.shmem <= 227 * 1024
+    assert plan.shmem >= 8 * min(L, k2.RESIDENT_COLUMNS)
+
+
+def test_k2_launch_plan_spreads_one_frame_and_launches_nothing_for_none():
+    assert k2.launch_plan(181, 1024).blocks > 1
+    assert k2.launch_plan(0, 1024).blocks == 0
+    lab, dist = k2.nearest_landmark(torch.zeros((0, 8, 2)),
+                                    torch.zeros((16, 2)),
+                                    torch.tensor(3, dtype=torch.int32))
+    assert lab.shape == dist.shape == (0, 8)
+    # a chunk narrower than the table, as the checks on the card use it
+    plan = k2.plan_for(181, 1024, lanes=32, columns=40)
+    assert plan.shmem == 512 and plan.blocks == -(-181 * 32 // 128)
+    assert plan.threads == 128
+
+
+@pytest.mark.parametrize("T,B,K", [(1833, 48, 128), (240, 24, 128),
+                                   (7, 181, 130), (0, 48, 128)])
+def test_k1_launch_plan_matches_the_kernels_layout(T, B, K):
+    plan = k1.launch_plan(T, B, K)
+    assert plan.blocks == T and plan.lanes == k1.LANES == 8
+    assert plan.threads % (32 * 1) == 0 and plan.threads % plan.lanes == 0
+    sums = -(-12 * K // 16) * 16                   # 16-byte aligned sums
+    assert plan.shmem == sums + 8 * K + 12 * B <= 48 * 1024
+
+
+def test_k1_check_follows_the_shared_memory_layout():
+    nact = torch.tensor(3, dtype=torch.int32)
+    mask = torch.zeros((2, 8), dtype=torch.bool)
+    pts = tf32(np.zeros((2, 8, 2)))
+    k1._check(pts, tf32(np.zeros((2448, 2))), mask, nact)
+    with pytest.raises(ValueError, match="shared memory"):
+        k1._check(pts, tf32(np.zeros((2456, 2))), mask, nact)
+
+
+def test_build_key_holds_the_shared_header():
+    assert [p.rsplit("/", 1)[-1] for p in _build._headers()] == \
+        ["lane_argmin.cuh"]
+    nact = torch.tensor(3, dtype=torch.int32)
+    assert _build.as_count(nact, nact.device) is nact
+    made = _build.as_count(5, torch.device("cpu"))
+    assert made.dtype == torch.int32 and made.shape == () and int(made) == 5
+
+
+def test_check_refuses_a_view_that_starts_on_an_odd_float():
+    """The kernels read (x, y) rows as float2: a contiguous view 4 bytes
+    off an 8-byte boundary is refused, an aligned one of the same rows
+    passes."""
+    nact = torch.tensor(3, dtype=torch.int32)
+    mask = torch.zeros((2, 8), dtype=torch.bool)
+    pts = tf32(np.zeros((2, 8, 2)))
+    flat = torch.zeros(2 * 16 + 2)
+    flat = flat[(flat.data_ptr() % 8) // 4:]          # 8-byte aligned start
+    good, odd = flat[:32].view(16, 2), flat[1:33].view(16, 2)
+    assert odd.is_contiguous() and odd.data_ptr() % 8 == 4
+    k2._check(pts, good, nact)
+    k1._check(pts, good, mask, nact)
+    with pytest.raises(ValueError, match="8-byte"):
+        k2._check(pts, odd, nact)
+    with pytest.raises(ValueError, match="8-byte"):
+        k1._check(pts, odd, mask, nact)
+    with pytest.raises(ValueError, match="8-byte"):
+        k2._check(flat[1:33].view(2, 8, 2), good, nact)
