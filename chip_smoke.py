@@ -38,14 +38,14 @@ nonzero and the final line is not printed:
    golden: census exact, poses and map within 1e-3;
 7. warm timings of the main path, and the kernel launches
    (torch.profiler) and host syncs (PyTorch's sync debug mode) of the
-   init and of one refine sweep;
+   init's first 8 chunks and of one refine sweep;
 8. the sequential engine: ``run(world, ICMConfig(sweep_mode="sequential",
-   N=2), "cuda")`` against the JAX golden
-   tests/golden/torch_engines_synth_T1833.npz: census exact, ATE within
-   10%; K2 launched exactly (T-1) + N*T times (once per frame through
-   ``landmark_map.update``), K1 never; its init and sweep times; launches
-   and host syncs of one sequential sweep over the world's first 64
-   frames;
+   N=1), "cuda")`` against the JAX golden
+   tests/golden/torch_engines_synth_T1833.npz (case ``seq1_``): census
+   exact, ATE within 10%; K2 launched exactly (T-1) + N*T times (once per
+   frame through ``landmark_map.update``), K1 never; its init and sweep
+   times; launches and host syncs of one sequential sweep over the
+   world's first 16 frames;
 9. the non-quirk Jacobi engine: ``ICMConfig(replicate_new_obs_quirk=
    False, pose_update="jacobi", N=3, L=2048)`` (the causal init, then
    batched sweeps with connected-component labels; at L=1024 the first
@@ -78,10 +78,38 @@ nonzero and the final line is not printed:
    -x -C build/parent``), the same table of both, in turns old, new, new,
    old, each turn a process of its own.
 
+13. custom energy hooks on the batched engines: the T=1833 world with
+   ``ICMConfig(N=3, init_mode="batched")`` and the hooks of
+   tests/test_extensions.py (``obs_scale = 1/(1+dist)``, ``extra_one_sided
+   = extra_two_sided = 5 (x[:2] - odo_cur[:2])``), against the JAX golden
+   tests/golden/torch_models_synth.npz (made by tools/make_torch_golden.py):
+   census exact, ATE within 10%, K1 exactly N times;
+14. a replaced observation model (the robust soft-gated h of
+   tests/test_extensions.py) on the small world, L=256, cota=20, N=3: a
+   model sends the init to the causal sweep (K2 once per frame), then N
+   capped sweeps (K1 N times): census exact, poses and map within 1e-3;
+15. ``sweep_mode="ba"``, N=3, on the T=1833 world: census exact, ATE within
+   10%, K1 exactly N times; then one ``ba_refine`` call from the run's
+   state reports its energy after each GN step, which must not increase;
+16. ``sweep_mode="windowed_ba"``, N=3, ``ba_window=64``: the same checks;
+   the global BA energy before and after one ``windowed_ba_refine`` call
+   from the run's state must not increase;
+17. loop closure on the default world of benchmarks/loop_closure_eval.py
+   (``drifted_world(T=2000, ...)``): ``close_loops`` on the golden's JAX
+   ICM trajectory (N=15, L=1024, cota=10) with the golden's arguments
+   (3 rounds of detect -> pose-graph correct): each round's applied flag
+   and closure count, and the final accepted pairs, equal JAX's; the ATE
+   after closure within 10% of JAX's; then ``python -m
+   icm_slam_tpu_torch run --dataset synthetic --frames 600 --iters 3
+   --loop-close`` as a subprocess, its file and its printed closure count
+   checked.
+   Phases 13, 15 and 16 also profile one sweep from the run's state
+   (kernel launches, host syncs), as phase 7 does.
+
 ``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
 package under ROOT (what each of those turns runs).
 
-Every run of a main path (phases 4, 5, 8, 9, 11) counts the kernel
+Every run of a main path (phases 4, 5, 8, 9, 11, 13-16) counts the kernel
 launches with the counters set to 0 just before it and read just after;
 the kernels' JSON line sums them.  A ``wall_seconds`` line gives each
 phase's seconds.  Then the card's ``nvidia-smi`` line
@@ -101,6 +129,8 @@ GOLDEN = os.path.join(HERE, "tests", "golden",
                       "torch_slice_synth_T1833_N30.npz")
 GOLDEN_ENGINES = os.path.join(HERE, "tests", "golden",
                               "torch_engines_synth_T1833.npz")
+GOLDEN_MODELS = os.path.join(HERE, "tests", "golden",
+                             "torch_models_synth.npz")
 # scratch files of phase 11, inside the checkout (build/ is not committed)
 WORK = os.path.join(HERE, "build", "chip_smoke")
 
@@ -225,12 +255,15 @@ def kernel_bound_us(kind, T, B, K, nact):
 
 
 # the shapes the paths give the kernels, each with the seed of its inputs:
-# K1 on the capped sweep; K2 on the uncapped sweep, on the non-quirk sweep
-# (the first 128 rows of a table of 2048) and once per frame in
-# landmark_map.update (all beams at L=1024, compacted beams at L=2048)
+# K1 on the capped sweep (the T=1833 world, and the small world of phase
+# 14); K2 on the uncapped sweep, on the non-quirk sweep (the first 128
+# rows of a table of 2048) and once per frame in landmark_map.update (all
+# beams at L=1024, compacted beams at L=2048 and, on the small world, at
+# L=256)
 KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k2", (1833, 48, 128), 7), ("k2", (1, 181, 1024), 3),
-                 ("k2", (1, 48, 2048), 8))
+                 ("k2", (1, 48, 2048), 8), ("k1", (240, 16, 128), 14),
+                 ("k2", (1, 16, 256), 15))
 # K2 shapes whose table is a view of the first rows of one this wide, as
 # the non-quirk sweep passes it
 TABLE_WIDTH = {(1833, 48, 128): 2048}
@@ -408,7 +441,12 @@ def phase_k1(T=1833, B=48, K=128, dist_thr=1.0):
         err = max(err, hold_k1(pts, mp, mask, n, dist_thr, "main shape"))
     # beams beyond one round of either pass, a width that is no multiple
     # of 4 (scalar stores) and duplicated columns in different lanes
-    odd = []
+    # the small world's capped sweep (phase 14)
+    p14, m14, mask14 = shape_inputs("k1", (240, 16, 128))
+    for n in (0, 1, 7, 37, 128):
+        err = max(err, hold_k1(p14, m14, mask14, n, dist_thr,
+                               "(240, 16, 128)"))
+    odd = [[240, 16, 128]]
     for (t, b, k), seed in (((65, 181, 128), 11), ((33, 48, 130), 12),
                             ((9, 5, 8), 13)):
         p2, m2, k2mask = kernel_inputs(t, b, k, seed=seed)
@@ -740,9 +778,15 @@ def phase_profile(smi):
     seed = icm.seed_map(data, x0, cfg)
     state, x, _ = init_sweep_batched(data, seed, x0, cfg, w)
     raw_init = int(state.nact)
-    emit(phase="init_profile", **launches_and_syncs(
-        lambda: init_sweep_batched(data, seed, x0, cfg, w)),
-        note="init_sweep_batched (58 chunks of 32 frames, R=2)", card=smi)
+    # the init's first 8 chunks: the profiler needs minutes to sum the
+    # whole init's ~200k launches, and every chunk runs the same ops
+    F = 8 * cfg.init_chunk_len
+    head = data._replace(dist=data.dist[:F], mask=data.mask[:F],
+                         odom=data.odom[:F], u=data.u[:F])
+    emit(phase="init_profile", frames=F, **launches_and_syncs(
+        lambda: init_sweep_batched(head, seed, x0, cfg, w)),
+        note=f"init_sweep_batched over frames 0-{F - 1} (8 chunks of "
+             f"{cfg.init_chunk_len} frames, R=2)", card=smi)
 
     cur = filter_map(state, cfg.cota, cfg.dist_thr, live_cap=cfg.map_run_cap)
     data = icm.hoist_compaction(data, cfg)
@@ -808,13 +852,19 @@ def hold_to_golden(res, x_true, gc, what):
 
 def map_state(res, L):
     """A result's map as a MapState of width L on the card."""
+    return map_of(res.map_pos, res.map_counts, L)
+
+
+def map_of(map_pos, map_counts, L):
+    """A map's (n, 2) positions and (n,) counts as a MapState of width L
+    on the card."""
     import torch
     from icm_slam_tpu_torch.mapping.landmark_map import MapState
-    n = res.map_pos.shape[0]
+    n = map_pos.shape[0]
     pos = torch.zeros((L, 2), device="cuda")
     counts = torch.zeros((L,), device="cuda")
-    pos[:n] = torch.from_numpy(res.map_pos).cuda()
-    counts[:n] = torch.from_numpy(res.map_counts).cuda()
+    pos[:n] = torch.from_numpy(map_pos).cuda()
+    counts[:n] = torch.from_numpy(map_counts).cuda()
     return MapState(pos, counts,
                     torch.tensor(n, dtype=torch.int32, device="cuda"))
 
@@ -826,27 +876,27 @@ def phase_sequential(ge, smi):
     from icm_slam_tpu_torch.core.energy import weights
     from icm_slam_tpu_torch.solver import icm
 
-    ds, x_true = big_world(ge, "seq")
-    T, cfg = ds.T, ICMConfig(sweep_mode="sequential", N=2)
+    ds, x_true = big_world(ge, "seq1")
+    T, cfg = ds.T, ICMConfig(sweep_mode="sequential", N=1)
     res, n = counted(lambda: icm.run(ds, cfg, "cuda"))
     want = (T - 1) + cfg.N * T
     check(n["k2"] == want and n["k1"] == 0,
           f"sequential run launched K2 {n['k2']}x, K1 {n['k1']}x; want "
           f"{want} and 0")
-    agree = hold_to_golden(res, x_true, golden_case(ge, "seq"),
+    agree = hold_to_golden(res, x_true, golden_case(ge, "seq1"),
                            "sequential")
     t = res.timings
     emit(phase="sequential_engine", world="synthetic_world(T=1833, seed=0)",
-         config="ICMConfig(sweep_mode='sequential', N=2) L=1024",
+         config="ICMConfig(sweep_mode='sequential', N=1) L=1024",
          k2_launches=n["k2"], k1_launches=n["k1"], **agree,
          prepare_s=t["prepare_s"], init_s=t["init_s"],
          refine_per_iter_s=t["refine_per_iter_s"],
          init_frames_per_s=(T - 1) / t["init_s"],
          refine_frames_per_s=T / t["refine_per_iter_s"], card=smi)
 
-    # one sequential sweep (+ map filter) over the first 64 frames, from
+    # one sequential sweep (+ map filter) over the first 16 frames, from
     # the run's map and poses: launches per frame, host syncs per sweep
-    F = 64
+    F = 16
     data = icm.prepare(ds.slice(F), cfg, "cuda")
     rcfg = icm.resolve_config(cfg, data)
     w = weights(rcfg, "cuda")
@@ -856,7 +906,7 @@ def phase_sequential(ge, smi):
     prof = launches_and_syncs(lambda: icm._refine_step(data, cur, x, rcfg, w))
     emit(phase="sequential_sweep_profile", frames=F,
          kernel_launches_per_frame=prof["kernel_launches"] / F, **prof,
-         note="one sequential sweep + map filter over frames 0-63 of the "
+         note="one sequential sweep + map filter over frames 0-15 of the "
               "T=1833 world, after one warm sweep", card=smi)
     return n, res
 
@@ -896,7 +946,7 @@ def phase_k2_per_frame(B=181, L=1024):
     from icm_slam_tpu_torch.ops import assoc as k2
     pts, mp, _ = shape_inputs("k2", (1, B, L))
     err = 0.0
-    for shape in ((1, B, L), (1, 48, 2048)):
+    for shape in ((1, B, L), (1, 48, 2048), (1, 16, 256)):
         plan = k2.launch_plan(shape[1], shape[2])
         check(plan.lanes == 32 and plan.blocks > 1,
               f"per-frame shape {shape} not spread over blocks: {plan}")
@@ -909,7 +959,7 @@ def phase_k2_per_frame(B=181, L=1024):
                              lambda: k2.nearest_landmark_plain(pts, mp, nact),
                              reps=200)
     emit(phase="k2_per_frame_vs_plain", shape=[1, B, L],
-         other_shapes=[[1, 48, 2048]],
+         other_shapes=[[1, 48, 2048], [1, 16, 256]],
          nact=[0, 1, 31, 33, 37, 127, 128, L - 1, L], labels="exact",
          ties="exact", dist_max_abs_err=err, issue_interval_ms=ms,
          plain_ms=plain_ms, plan=k2.launch_plan(B, L)._asdict())
@@ -1029,6 +1079,306 @@ def phase_entry_points(seq_res, smi):
     return totals
 
 
+def hooks_model():
+    """The hooks of tests/test_extensions.py in the port's batched
+    convention (x (P, 3), every problem field with a leading P)."""
+    from icm_slam_tpu_torch.core.energy import EnergyModel
+
+    def anchor_to_odom(x, prob):
+        return 5.0 * (x[:, :2] - prob.odo_cur[:, :2])
+
+    return EnergyModel(obs_scale=lambda dist, ang: 1.0 / (1.0 + dist),
+                       extra_one_sided=anchor_to_odom,
+                       extra_two_sided=anchor_to_odom)
+
+
+def robust_obs_model():
+    """tests/test_extensions.py's robust soft-gated observation model."""
+    import math
+    import torch
+    from icm_slam_tpu_torch.core.energy import EnergyModel
+
+    def robust_obs(x, p, sqrt_q):
+        a = p.ang + x[:, 2:3] - math.pi / 2.0
+        pts = x[:, None, :2] + p.dist[..., None] * torch.stack(
+            [torch.cos(a), torch.sin(a)], dim=-1)
+        r = (pts - p.matched) * sqrt_q
+        n2 = (r * r).sum(dim=-1, keepdim=True)
+        return torch.where(p.mask[..., None], r / torch.sqrt(1.0 + n2), 0.0)
+
+    return EnergyModel(obs_model=robust_obs)
+
+
+# the golden names a case's model; these are the same hooks in torch
+MODELS = {"hooks": hooks_model, "robust_obs": robust_obs_model}
+
+
+def sweep_profile(res, cfg, smi, what):
+    """Launches and host syncs of one refine sweep (+ map filter) of
+    ``cfg`` from a run's final map and poses on the T=1833 world."""
+    import torch
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.solver import icm
+    ds, _ = world_1833()
+    data = icm.prepare(ds, cfg, "cuda")
+    rcfg = icm.resolve_config(cfg, data)
+    data = icm.hoist_compaction(data, rcfg)
+    w = weights(rcfg, "cuda")
+    cur = map_state(res, rcfg.L)
+    x = torch.from_numpy(res.x).cuda()
+    icm._refine_step(data, cur, x, rcfg, w)
+    emit(phase=f"{what}_sweep_profile", **launches_and_syncs(
+        lambda: icm._refine_step(data, cur, x, rcfg, w)),
+        note="one refine sweep + map filter from the run's final state, "
+             "after one warm sweep", card=smi)
+    return data, cur, x, rcfg, w
+
+
+def phase_hooks_batched(gm, smi):
+    """Custom hooks through the batched init and the batched refine."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.solver import icm
+
+    ds, x_true = big_world(gm, "hooks")
+    gc = golden_case(gm, "hooks")
+    cfg = ICMConfig(N=3, init_mode="batched",
+                    model=MODELS[str(gc["model"])]())
+    res, n = counted(lambda: icm.run(ds, cfg, "cuda"))
+    check(n["k1"] == cfg.N and n["k2"] == 0,
+          f"hooks run launched K1 {n['k1']}x, K2 {n['k2']}x; want "
+          f"{cfg.N} and 0")
+    agree = hold_to_golden(res, x_true, gc, "hooks batched")
+    t = res.timings
+    emit(phase="hooks_batched", world="synthetic_world(T=1833, seed=0)",
+         config="ICMConfig(N=3, init_mode='batched', model=hooks of "
+                "tests/test_extensions.py)",
+         k1_launches=n["k1"], k2_launches=n["k2"], **agree,
+         init_s=t["init_s"], refine_per_iter_s=t["refine_per_iter_s"],
+         card=smi)
+    sweep_profile(res, cfg, smi, "hooks")
+    return n, res
+
+
+def phase_hooks_causal(gm, smi):
+    """A replaced observation model on the small world: the causal init
+    (K2 per frame), then capped batched sweeps (K1)."""
+    import numpy as np
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import (synthetic_world,
+                                                  world_checksum)
+    from icm_slam_tpu_torch.solver import icm
+
+    gc = golden_case(gm, "causal")
+    ds = synthetic_world(T=240, n_landmarks=12, seed=7)
+    check(world_checksum(ds) == str(gc["world_checksum"]),
+          "small world differs from the golden's")
+    cfg = ICMConfig(L=256, cota=20.0, N=3, model=MODELS[str(gc["model"])]())
+    check(not icm.use_batched_init(cfg), "a model must take the causal init")
+    res, n = counted(lambda: icm.run(ds, cfg, "cuda"))
+    check(n["k2"] == ds.T - 1 and n["k1"] == cfg.N,
+          f"causal hooks run launched K2 {n['k2']}x, K1 {n['k1']}x; want "
+          f"{ds.T - 1} and {cfg.N}")
+    check(res.map_pos.shape[0] == int(gc["census"]),
+          f"causal hooks census {res.map_pos.shape[0]} != {int(gc['census'])}")
+    errs = {k: float(np.abs(getattr(res, k) - gc[k]).max())
+            for k in ("x_init", "x", "map_pos", "changes")}
+    for k, e in errs.items():
+        check(e <= 1e-3, f"causal hooks: {k} differs from JAX by {e}")
+    t = res.timings
+    emit(phase="hooks_causal", world="synthetic_world(T=240, "
+         "n_landmarks=12, seed=7)", config="ICMConfig(L=256, cota=20, N=3, "
+         "model=robust obs_model)", k2_launches=n["k2"], k1_launches=n["k1"],
+         census=res.map_pos.shape[0], max_abs_diff=errs, tolerance=1e-3,
+         init_s=t["init_s"], init_frames_per_s=(ds.T - 1) / t["init_s"],
+         refine_per_iter_s=t["refine_per_iter_s"], card=smi)
+    return n, res
+
+
+# one backend call from JAX's start against JAX's call: poses (atol),
+# the live count (exact) and the energy's drop (relative to JAX's drop).
+# windowed_ba's (3W x 3W) f32 solves put the port's CPU run 1.8e-3 from
+# JAX's poses at T=1833, full-chain BA's 3.8e-6.
+ONE_CALL_TOL = {"ba": 1e-3, "windowed_ba": 5e-3}
+ONE_CALL_DROP_RTOL = 0.01
+
+
+def one_backend_call(gm, prefix, mode, data, rcfg, w):
+    """``ba_refine`` / ``windowed_ba_refine`` once from the golden's start
+    (JAX's final map, its poses perturbed) against JAX's same call: the
+    poses, the map, the live count and the BA energy of the start's
+    association before and after, so that a call whose steps are all
+    rejected, or wrong, fails."""
+    import numpy as np
+    import torch
+    from icm_slam_tpu_torch.models import bundle_adjustment as ba
+    from icm_slam_tpu_torch.models.windowed_ba import windowed_ba_refine
+    cur = map_of(gm[f"{prefix}_map_pos"], gm[f"{prefix}_map_counts"], rcfg.L)
+    x0 = torch.from_numpy(gm[f"{prefix}_one_x_start"]).cuda()
+    prob, amap = ba.ba_problem(data, cur, x0, rcfg)
+    rep = {}
+    if mode == "ba":
+        m, x1 = ba.ba_refine(data, cur, x0, rcfg, w,
+                             gn_iters=rcfg.ba_gn_iters,
+                             cg_iters=rcfg.ba_cg_iters, report=rep)
+        y1 = m.pos
+        steps = [float(e) for e in rep["energies"]]
+    else:
+        m, x1 = windowed_ba_refine(data, cur, x0, rcfg, w,
+                                   window=rcfg.ba_window)
+        y1 = amap.pos
+    e = [float(ba.energy(x0, amap.pos, prob, w)),
+         float(ba.energy(x1, y1, prob, w))]
+    e_jax = [float(v) for v in gm[f"{prefix}_one_energies"]]
+    if mode == "ba":
+        steps = [e[0]] + steps
+    else:
+        steps = e
+    check(all(b <= a for a, b in zip(steps, steps[1:])),
+          f"{mode}: the energy rose within one call: {steps}")
+    x1 = x1.cpu().numpy()
+    dx = float(np.abs(x1 - gm[f"{prefix}_one_x"]).max())
+    dmap = float(np.abs(m.pos.cpu().numpy()
+                        - gm[f"{prefix}_one_map_pos"]).max())
+    nact, nact_jax = int(m.nact), int(gm[f"{prefix}_one_nact"])
+    drop, drop_jax = e[0] - e[1], e_jax[0] - e_jax[1]
+    check(nact == nact_jax, f"{mode} one call: nact {nact} != JAX's "
+                            f"{nact_jax}")
+    check(dx <= ONE_CALL_TOL[mode],
+          f"{mode} one call: poses {dx} from JAX's (tolerance "
+          f"{ONE_CALL_TOL[mode]})")
+    check(dmap <= 1e-3, f"{mode} one call: map {dmap} from JAX's")
+    check(abs(e[0] - e_jax[0]) <= 1e-5 * e_jax[0],
+          f"{mode} one call: start energy {e[0]} against JAX's {e_jax[0]}")
+    check(drop_jax > 0 and abs(drop - drop_jax) <= ONE_CALL_DROP_RTOL
+          * drop_jax, f"{mode} one call: energy drop {drop} against "
+                      f"JAX's {drop_jax}")
+    return dict(one_call_energies=e, one_call_energies_jax=e_jax,
+                one_call_energy_steps=steps, one_call_drop=drop,
+                one_call_drop_jax=drop_jax, one_call_nact=nact,
+                one_call_x_max_abs_diff_vs_jax=dx,
+                one_call_map_max_abs_diff_vs_jax=dmap,
+                one_call_moved=float(np.abs(
+                    x1 - gm[f"{prefix}_one_x_start"]).max()),
+                one_call_tolerance=dict(
+                    x=ONE_CALL_TOL[mode], map=1e-3, start_energy_rtol=1e-5,
+                    drop_rtol=ONE_CALL_DROP_RTOL))
+
+
+def phase_ba(gm, smi, mode):
+    """``sweep_mode="ba"`` or ``"windowed_ba"`` at full width, then one
+    backend call held against JAX's (``one_backend_call``)."""
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.solver import icm
+
+    prefix = {"ba": "ba", "windowed_ba": "wba"}[mode]
+    ds, x_true = big_world(gm, prefix)
+    gc = golden_case(gm, prefix)
+    cfg = ICMConfig(N=3, sweep_mode=mode)
+    res, n = counted(lambda: icm.run(ds, cfg, "cuda"))
+    check(n["k1"] == cfg.N and n["k2"] == 0,
+          f"{mode} run launched K1 {n['k1']}x, K2 {n['k2']}x; want "
+          f"{cfg.N} and 0")
+    agree = hold_to_golden(res, x_true, gc, mode)
+    data, _, _, rcfg, w = sweep_profile(res, cfg, smi, prefix)
+    one = one_backend_call(gm, prefix, mode, data, rcfg, w)
+    torch.cuda.synchronize()
+    t = res.timings
+    emit(phase=f"{mode}_engine", world="synthetic_world(T=1833, seed=0)",
+         config=f"ICMConfig(N=3, sweep_mode={mode!r}) ba_gn_iters="
+                f"{rcfg.ba_gn_iters} ba_cg_iters={rcfg.ba_cg_iters} "
+                f"ba_window={rcfg.ba_window}",
+         k1_launches=n["k1"], k2_launches=n["k2"], **agree, **one,
+         init_s=t["init_s"], refine_per_iter_s=t["refine_per_iter_s"],
+         card=smi)
+    return n, res
+
+
+def phase_loop_closure(gm, smi):
+    """close_loops on JAX's ICM trajectory of the loop-closure benchmark's
+    world, then the CLI's --loop-close as a user runs it."""
+    import json as _json
+    import numpy as np
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import drifted_world, world_checksum
+    from icm_slam_tpu_torch.models.loop_closure import close_loops
+    from icm_slam_tpu_torch.solver import icm
+
+    gc = golden_case(gm, "loop")
+    ds, x_true, _ = drifted_world(T=2000, n_landmarks=150, world_size=50.0,
+                                  seed=3, v_noise=0.03, w_noise=0.004,
+                                  w_bias=0.001, laps=2)
+    check(world_checksum(ds) == str(gc["world_checksum"]),
+          "drifted_world(T=2000, seed=3) differs from the golden's world")
+    cfg = ICMConfig(N=15, L=1024, cota=10.0)
+    data = icm.prepare(ds, cfg, "cuda")
+    rcfg = icm.resolve_config(cfg, data)
+    kwargs = _json.loads(str(gc["loop_close_kwargs"]))
+    report = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, cl = close_loops(data, torch.from_numpy(gc["x"]).cuda(), rcfg,
+                        report=report, **kwargs)
+    x = x.cpu().numpy()
+    close_s = time.perf_counter() - t0
+    rows = report["rounds"]
+    got = [(r["applied"], r["n_closures"]) for r in rows]
+    want = [(bool(a), int(c)) for a, c in zip(gc["rounds_applied"],
+                                              gc["rounds_n_closures"])]
+    check(got == want, f"closure rounds {got} != JAX's {want}")
+    check(np.array_equal(cl.pairs, gc["pairs"]),
+          f"accepted pairs differ from JAX's ({cl.pairs.shape[0]} against "
+          f"{gc['pairs'].shape[0]})")
+    check(np.isfinite(x).all() and x.shape == gc["x_closed"].shape,
+          "non-finite or misshapen closed trajectory")
+    ate_port = ate_rmse(x, x_true)
+    ate_jax = float(gc["ate_rmse_closed"])
+    check(abs(ate_port - ate_jax) <= 0.1 * ate_jax,
+          f"ATE after closure {ate_port} not within 10% of JAX's {ate_jax}")
+    out = dict(rounds=rows, pairs=int(cl.pairs.shape[0]),
+               ate_rmse_icm=ate_rmse(gc["x"], x_true),
+               ate_rmse_closed_port=ate_port, ate_rmse_closed_jax=ate_jax,
+               x_closed_max_abs_diff_vs_jax=float(
+                   np.abs(x - gc["x_closed"]).max()),
+               close_loops_s=close_s)
+
+    # the CLI, as a user runs it, in a process of its own, with the
+    # arguments JAX's CLI ran with for the golden (600 frames of
+    # synthetic_world(), 3 iterations, --loop-close)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "loop.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "icm_slam_tpu_torch",
+         *_json.loads(str(gm["cliloop_args"])), "--out", path],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"cli run --loop-close exited {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    _files_written([path], "cli run --loop-close")
+    counts = [int(line.split(":")[1]) for line in proc.stdout.splitlines()
+              if line.startswith("# loop closures accepted:")]
+    check(len(counts) == 1, "cli run --loop-close printed no closure count")
+    want = int(gm["cliloop_closures"])
+    check(counts[0] == want, f"cli run --loop-close accepted {counts[0]} "
+                             f"closures, JAX's CLI {want}")
+    with np.load(path) as z:
+        check(z["x"].shape == (600, 3) and np.isfinite(z["x"]).all(),
+              f"cli run --loop-close: bad result {z['x'].shape}")
+        census = z["map_pos"].shape[0]
+        check(census == int(gm["cliloop_census"]),
+              f"cli run --loop-close: census {census} != JAX's "
+              f"{int(gm['cliloop_census'])}")
+        dx = float(np.abs(z["x"] - gm["cliloop_x"]).max())
+    out.update(cli_closures=counts[0], cli_closures_jax=want,
+               cli_census=census, cli_x_max_abs_diff_vs_jax=dx,
+               cli_s=time.perf_counter() - t0)
+    emit(phase="loop_closure", world="drifted_world(T=2000, "
+         "n_landmarks=150, world_size=50, seed=3, w_bias=0.001, laps=2)",
+         close_loops_kwargs=kwargs, **out, card=smi)
+
+
 PARENT_ROOT = os.path.join(HERE, "build", "parent")
 
 
@@ -1078,10 +1428,15 @@ LAUNCHED_BY = {
     ("k2", (1833, 48, 128)): ("nonquirk",
                               "the non-quirk Jacobi run, N=3 (phase 9)"),
     ("k2", (1, 181, 1024)): ("sequential",
-                             "the sequential run, N=2 (phase 8)"),
+                             "the sequential run, N=1 (phase 8)"),
     ("k2", (1, 48, 2048)): ("nonquirk",
                             "the non-quirk Jacobi run's causal init "
-                            "(phase 9)")}
+                            "(phase 9)"),
+    ("k1", (240, 16, 128)): ("hooks_causal",
+                             "the small world's capped sweeps, N=3 "
+                             "(phase 14)"),
+    ("k2", (1, 16, 256)): ("hooks_causal",
+                           "the small world's causal init (phase 14)")}
 
 
 def check_shapes_covered(launches):
@@ -1107,10 +1462,14 @@ def kernels_line(launches, checks, rows):
         for r in rows:
             if r["kernel"] != kind:
                 continue
-            run, by = LAUNCHED_BY[(kind, tuple(r["shape"]))]
+            key = (kind, tuple(r["shape"]))
+            run, by = LAUNCHED_BY[key]
             shapes.append(dict(
                 r, launched_by=by, library_ms=None,
-                launches=launches[run]["shapes"][(kind, tuple(r["shape"]))]))
+                launches=launches[run]["shapes"][key],
+                launches_by_run={name: n["shapes"][key]
+                                 for name, n in launches.items()
+                                 if key in n.get("shapes", {})}))
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches["all"][kind],
@@ -1185,7 +1544,16 @@ def main():
     nacts["k2"].append(nq_res.map_pos.shape[0])
     k2_frame = timed("k2_per_frame", phase_k2_per_frame)
     n11 = timed("entry_points", phase_entry_points, seq_res, smi)
-    launches.update(sequential=n8, nonquirk=n9, entry_points=n11)
+    gm = np.load(GOLDEN_MODELS)
+    n13, _ = timed("hooks_batched", phase_hooks_batched, gm, smi)
+    n14, hc_res = timed("hooks_causal", phase_hooks_causal, gm, smi)
+    nacts["k2"].append(hc_res.map_pos.shape[0])
+    n15, _ = timed("ba", phase_ba, gm, smi, "ba")
+    n16, _ = timed("windowed_ba", phase_ba, gm, smi, "windowed_ba")
+    timed("loop_closure", phase_loop_closure, gm, smi)
+    launches.update(sequential=n8, nonquirk=n9, entry_points=n11,
+                    hooks_batched=n13, hooks_causal=n14, ba=n15,
+                    windowed_ba=n16)
     check_shapes_covered(launches)
     emit(phase="launches_by_shape", **{
         run: {f"{kind} {list(shape)}": c
@@ -1194,8 +1562,8 @@ def main():
     rows = timed("kernel_timing", kernel_timing, nacts)
     emit(phase="wall_seconds", **walls,
          since_build=time.perf_counter() - t0)
-    launches["all"] = {k: launches["main"][k] + launches["uncapped"][k]
-                       + n8[k] + n9[k] + n11[k] for k in ("k1", "k2")}
+    launches["all"] = {k: sum(n[k] for n in launches.values())
+                       for k in ("k1", "k2")}
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"])
 
     print(json.dumps({"kernels": kernels_line(

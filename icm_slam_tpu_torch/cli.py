@@ -8,8 +8,10 @@
 entry points A+D).  ``--device`` picks the device (default ``cuda``; a
 missing GPU is an error, never a silent fallback to the CPU).  The flags
 are those of ``python -m icm_slam_tpu``, except the TPU knobs
-(``--pallas``, ``--pallas-fused``), plotting (``--plot``, ``--plot-live``)
-and ``--loop-close``, which the port does not have.
+(``--pallas``, ``--pallas-fused``) and plotting (``--plot``,
+``--plot-live``), which the port does not have.  ``run --loop-close``
+detects loop closures in the refined trajectory and corrects it with the
+pose graph on the same device.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ def _add_common(ap):
     ap.add_argument("--frames", type=int, default=0, help="truncate frames")
     ap.add_argument("--mode", default=None,
                     choices=["sequential", "batched", "ba", "windowed_ba"],
-                    help="sweep mode (ba and windowed_ba are not ported)")
+                    help="sweep mode")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="torch device (default cuda)")
     ap.add_argument("--out", default=None, help="write result .npz here")
@@ -48,6 +50,9 @@ def _add_common(ap):
     ap.add_argument("--checked-cap", action="store_true",
                     help="verify map_run_cap at runtime instead of the "
                          "provable total_obs/cota bound")
+    ap.add_argument("--loop-close", action="store_true",
+                    help="run: detect loop closures (scan ICP) and "
+                         "pose-graph correct the refined trajectory")
     ap.add_argument("--export-map", default=None, metavar="PGM",
                     help="write the landmark map as an occupancy-grid PGM")
     ap.add_argument("--export-tum", default=None, metavar="TXT",
@@ -115,6 +120,16 @@ def cmd_run(args):
     res = run_offline(ds, cfg, args.device,
                       checkpoint_dir=args.checkpoint_dir, resume=args.resume,
                       log_path=args.log, verbose=not args.quiet)
+    if args.loop_close:
+        import torch
+        from icm_slam_tpu_torch.models.loop_closure import close_loops
+        from icm_slam_tpu_torch.solver.icm import prepare
+        data = prepare(ds, cfg, args.device)
+        x_fix, cl = close_loops(data, torch.as_tensor(res.x).to(
+            device=data.dist.device, dtype=data.dist.dtype), cfg)
+        res.x = x_fix.cpu().numpy()
+        if not args.quiet:
+            print(f"# loop closures accepted: {cl.pairs.shape[0]}")
     _save(args, res, ds, cfg)
 
 

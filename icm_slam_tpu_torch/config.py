@@ -4,9 +4,10 @@ Field names, defaults and semantics follow ``icm_slam_tpu.config.ICMConfig``
 (see there for the long notes on each knob), so the same YAML files and
 keyword arguments configure both packages.  The TPU-only knobs
 (``use_pallas_assoc``, ``use_pallas_fused_assoc``,
-``assoc_onehot_max_elems``), the bundle-adjustment knobs and the fields
-no ported code reads (the ROS topics, ``file``, ``dist_thr_obs``) are not
-fields here.  ``from_yaml`` ignores unknown keys, so the same YAML files
+``assoc_onehot_max_elems``) and the fields no ported code reads (the ROS
+topics, ``file``, ``dist_thr_obs``) are not fields here.  ``model`` takes
+the port's ``core.energy.EnergyModel``, whose hooks are torch code.
+``from_yaml`` ignores unknown keys, so the same YAML files
 load; it reads them with ``read_yaml``, a reader of the reference format
 (the machine with the GPU has no PyYAML).
 """
@@ -127,8 +128,7 @@ class ICMConfig:
     beam_step_deg: float = 1.0
 
     # --- engine knobs ---
-    sweep_mode: str = "batched"      # sequential | batched ("ba" and
-                                     # "windowed_ba": not ported)
+    sweep_mode: str = "batched"      # sequential | batched | ba | windowed_ba
     init_mode: str = "auto"          # auto | sequential | batched
     init_rounds: int = 2             # Picard rounds per chunk (batched init)
     init_chunk_len: int = 32         # frames per chunk of the batched init
@@ -146,8 +146,13 @@ class ICMConfig:
     map_run_cap: int = 256           # running-mean table width for old
                                      # landmarks (0 = full L)
     map_run_cap_checked: bool = False  # keep the cap and witness it at runtime
+    ba_gn_iters: int = 4             # outer GN steps per BA refinement (and
+                                     # per window solve in windowed_ba)
+    ba_cg_iters: int = 12            # PCG iterations per GN step (ba)
+    ba_window: int = 64              # keyframe block size (windowed_ba)
     dtype: str = "float32"
-    model: Optional[Any] = None      # custom EnergyModel hooks (not ported)
+    model: Optional[Any] = None      # core.energy.EnergyModel hooks; None =
+                                     # the default model
 
     @staticmethod
     def from_yaml(path: str, **overrides) -> "ICMConfig":

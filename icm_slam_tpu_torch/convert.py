@@ -28,6 +28,12 @@ def config_dict(config) -> dict:
 
 
 def config_to_torch(config) -> ICMConfig:
+    """The port's config of a JAX one.  A JAX config with ``model`` set
+    raises ValueError: its hooks are JAX code and have to be written again
+    in torch (``core.energy.EnergyModel``)."""
+    if getattr(config, "model", None) is not None:
+        raise ValueError("config.model holds JAX hooks; write them again in "
+                         "torch and pass an icm_slam_tpu_torch EnergyModel")
     return ICMConfig(**config_dict(config))
 
 

@@ -4,7 +4,8 @@ Port of ``icm_slam_tpu.solver.gauss_newton.lm_minimize`` over a leading
 problem axis P (the JAX package ``vmap``s it): a fixed iteration count,
 Marquardt diagonal damping, accept/reject per problem by ``torch.where``,
 the cofactor 3x3 solve, and the residual of the accepted point carried to
-the next iteration so each step evaluates the residuals once.
+the next iteration so each step evaluates the residuals once.  The
+caller supplies the Jacobian.
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ def lm_minimize(resid_fn, jac_fn, x0, iters=12, lam0=1e-4, lam_down=0.25,
                 lam_up=8.0):
     """Minimize sum(resid_fn(x)**2) per problem over x (P, 3).
 
-    resid_fn: (P, 3) -> (P, m); jac_fn: (P, 3) -> (P, m, 3), analytic.
+    resid_fn: (P, 3) -> (P, m); jac_fn: (P, 3) -> (P, m, 3), the
+    builders of ``core.energy`` (analytic, with ``hook_jacobian``'s
+    forward mode for a hook's terms).
     """
     eye = torch.eye(3, dtype=x0.dtype, device=x0.device)
     x = x0

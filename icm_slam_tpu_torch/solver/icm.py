@@ -3,7 +3,8 @@
 Port of ``icm_slam_tpu.solver.icm.run`` (the reference __main__ pipeline,
 ICM_ROS.py:280-316): scan filtering, first-frame clustering on the host,
 the init (batched Picard or the causal frame-by-frame sweep), then N
-refinement sweeps (batched or sequential), each followed by the map
+refinement sweeps (batched, sequential, or the bundle-adjustment backends
+of ``models/``: ``ba`` and ``windowed_ba``), each followed by the map
 filter.  The per-sweep witnesses and map changes stay on the device
 during a segment of sweeps and are checked at its end, before any
 observer sees the segment's state, as the fused JAX loop does.
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from icm_slam_tpu_torch.config import ICMConfig
-from icm_slam_tpu_torch.core.energy import weights
+from icm_slam_tpu_torch.core.energy import EnergyModel, weights
 from icm_slam_tpu_torch.core.geometry import beam_angles, beams_to_world
 from icm_slam_tpu_torch.data.datasets import Dataset
 from icm_slam_tpu_torch.frontend.scan_filter import (filter_scans,
@@ -59,15 +60,13 @@ class ICMResult:
 
 
 def check_supported(config: ICMConfig) -> None:
-    """Raise NotImplementedError on configurations the port does not run."""
-    unsupported = [
-        (config.model is not None, "custom EnergyModel hooks (model)"),
-        (config.sweep_mode in ("ba", "windowed_ba"),
-         f"sweep_mode={config.sweep_mode!r}"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported")
+    """Raise TypeError on a ``model`` that is not the port's EnergyModel
+    (the JAX package's hooks are JAX code; the JAX ``run`` fails on a model
+    without its hooks too)."""
+    if config.model is not None and not isinstance(config.model,
+                                                   EnergyModel):
+        raise TypeError(f"config.model must be an icm_slam_tpu_torch "
+                        f"EnergyModel, got {type(config.model).__name__}")
 
 
 def resolve_device(device) -> torch.device:
@@ -220,6 +219,15 @@ def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
     """
     if config.sweep_mode == "sequential":
         state, x = refine_sweep_sequential(data, old_map, x, config, w)
+    elif config.sweep_mode == "ba":
+        from icm_slam_tpu_torch.models.bundle_adjustment import ba_refine
+        state, x = ba_refine(data, old_map, x, config, w,
+                             gn_iters=config.ba_gn_iters,
+                             cg_iters=config.ba_cg_iters)
+    elif config.sweep_mode == "windowed_ba":
+        from icm_slam_tpu_torch.models.windowed_ba import windowed_ba_refine
+        state, x = windowed_ba_refine(data, old_map, x, config, w,
+                                      window=config.ba_window)
     else:
         state, x = refine_sweep_batched(data, old_map, x, config, w)
     filtered = filter_map(state, config.cota, config.dist_thr,

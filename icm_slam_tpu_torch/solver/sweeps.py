@@ -1,7 +1,7 @@
 """ICM sweep engines: causal init, sequential refine, Picard init, batched
 refine.
 
-Port of ``icm_slam_tpu.solver.sweeps`` for the default energy model:
+Port of ``icm_slam_tpu.solver.sweeps``:
 
 * ``init_sweep`` / ``init_chunk`` — ICM iteration 0 frame by frame (the
   reference's causal loop): a Python loop over one-problem LM solves in
@@ -22,9 +22,14 @@ The association runs through the port's CUDA kernels on a GPU: the fused
 association + per-frame sums (``ops.assoc_sums``) on the capped quirk
 branch, the nearest-landmark search (``ops.assoc``) on the other batched
 branches and, through ``landmark_map.update``, in every frame of the
-sequential engines.  The LM solves use the analytic Jacobians and the
-cofactor 3x3 solve everywhere (JAX's sequential engines use ``jacfwd``
-and an LU solve: the same math, other rounding).
+sequential engines.  The LM solves use the cofactor 3x3 solve everywhere
+(JAX's sequential engines use an LU solve: the same math, other
+rounding) and the analytic Jacobians of ``core.energy``, which take a
+user's ``EnergyModel`` hooks by forward mode (JAX takes ``jacfwd`` of
+every residual).  Such a model also reaches the kinematic predictions,
+and when it replaces or extends the two-sided cost the last frame's
+one-sided solve runs on its own (``_solve_one_at``), not folded into the
+batch.
 """
 from __future__ import annotations
 
@@ -32,11 +37,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from icm_slam_tpu_torch.core.energy import (PoseProblem, one_sided_jacobian,
+from icm_slam_tpu_torch.core.energy import (DEFAULT_MODEL, EnergyModel,
+                                            PoseProblem, one_sided_jacobian,
                                             one_sided_residuals,
                                             two_sided_jacobian,
                                             two_sided_residuals)
-from icm_slam_tpu_torch.core.geometry import beams_to_world, unicycle_step
+from icm_slam_tpu_torch.core.geometry import beams_to_world
 from icm_slam_tpu_torch.mapping.landmark_map import (MapState,
                                                      compact_labels,
                                                      connected_component_labels,
@@ -103,16 +109,28 @@ def _frame_sums(px, py, lab, wgt, L):
     return out[0], out[1], out[2]
 
 
-def _lm_one_sided(prob, x_start, w, iters):
-    return lm_minimize(lambda xx: one_sided_residuals(xx, prob, w),
-                       lambda xx: one_sided_jacobian(xx, prob, w),
-                       x_start[None], iters=iters)[0]
+def _model_of(config) -> EnergyModel:
+    """The config's EnergyModel; DEFAULT_MODEL when it sets none."""
+    return DEFAULT_MODEL if config.model is None else config.model
 
 
-def _lm_two_sided(prob, x_start, w, iters):
-    return lm_minimize(lambda xx: two_sided_residuals(xx, prob, w),
-                       lambda xx: two_sided_jacobian(xx, prob, w),
-                       x_start[None], iters=iters)[0]
+def _predict(model: EnergyModel, x, u, deltat):
+    """``model.kinematics`` of one pose (3,) in the hooks' (P, 3) form."""
+    return model.kinematics(x[None], u[None], deltat)[0]
+
+
+def _one_sided(prob, w, config):
+    """(residual fn, Jacobian fn) of the one-sided cost under the config's
+    model: analytic, with forward mode for a hook's own terms."""
+    model = _model_of(config)
+    return (lambda xx: one_sided_residuals(xx, prob, w, model),
+            lambda xx: one_sided_jacobian(xx, prob, w, model))
+
+
+def _two_sided(prob, w, config):
+    model = _model_of(config)
+    return (lambda xx: two_sided_residuals(xx, prob, w, model),
+            lambda xx: two_sided_jacobian(xx, prob, w, model))
 
 
 def _where_map(cond, a: MapState, b: MapState) -> MapState:
@@ -134,7 +152,7 @@ def _causal_step(state: MapState, xt, frame, config, w):
     """
     dist_t, mask_t, ang_t, u_prev, odo_prev, odo_cur = frame
     L = state.pos.shape[0]
-    xtc = unicycle_step(xt, u_prev, config.deltat)
+    xtc = _predict(_model_of(config), xt, u_prev, config.deltat)
     empty = ~mask_t.any()
     pts = beams_to_world(xtc, dist_t, ang_t)
     new_state, labels = update(state, state.pos, state.nact, pts, mask_t,
@@ -162,7 +180,8 @@ def _causal_step(state: MapState, xt, frame, config, w):
         matched=matched_p[None], x_prev=xt[None], u_prev=u_prev[None],
         odo_prev=odo_prev[None], odo_cur=odo_cur[None], x_next=z3,
         u_cur=z3[:, :2], odo_next=z3)
-    x_opt = _lm_one_sided(prob, xtc, w, config.pose_gn_iters)
+    x_opt = lm_minimize(*_one_sided(prob, w, config), xtc[None],
+                        iters=config.pose_gn_iters)[0]
     return new_state, torch.where(empty, xtc, x_opt)
 
 
@@ -222,6 +241,7 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
     iters = config.pose_gn_iters
     dtype, dev = x.dtype, x.device
     ang = data.ang[None]
+    model = _model_of(config)
 
     def assoc_frame(state, xt, t):
         pts = beams_to_world(xt, data.dist[t], data.ang)
@@ -246,7 +266,8 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
             u_prev=data.u[t - 1][None], odo_prev=data.odom[t - 1][None],
             odo_cur=data.odom[t][None], x_next=x_next[None],
             u_cur=data.u[t][None], odo_next=data.odom[t + 1][None])
-        x_opt = _lm_two_sided(prob, (x_prev + x_next) / 2.0, w, iters)
+        x_opt = lm_minimize(*_two_sided(prob, w, config),
+                            ((x_prev + x_next) / 2.0)[None], iters=iters)[0]
         x_t = torch.where(empty, (xt_run + x_next) / 2.0, x_opt)
         state = _where_map(empty, state, new_state)
         x_all[t] = x_t
@@ -263,8 +284,10 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
         u_prev=data.u[t - 1][None], odo_prev=data.odom[t - 1][None],
         odo_cur=data.odom[t][None], x_next=z3, u_cur=z3[:, :2],
         odo_next=z3)
-    x_one = _lm_one_sided(
-        prob, unicycle_step(x_prev, data.u[t - 1], config.deltat), w, iters)
+    x_one = lm_minimize(
+        *_one_sided(prob, w, config),
+        _predict(model, x_prev, data.u[t - 1], config.deltat)[None],
+        iters=iters)[0]
     # an empty last frame dead-reckons from the running pose (the
     # reference would index past the end, ICM_ROS.py:144)
     x_t = torch.where(empty, (xt_run + x_all[t]) / 2.0, x_one)
@@ -354,6 +377,7 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
     dtype, dev = x0.dtype, x0.device
     dist_thr = config.dist_thr
     deltat = config.deltat
+    kinematics = _model_of(config).kinematics
     C = max(2, int(config.init_chunk_len))
     R = max(1, int(config.init_rounds))
     iters = config.init_gn_iters or config.pose_gn_iters
@@ -438,9 +462,7 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
                 dist=dist_c, ang=ang_c, mask=mask_c, matched=matched,
                 x_prev=x_prev_arr, u_prev=u_prev_c, odo_prev=odom_prev_c,
                 odo_cur=odom_c, x_next=z3, u_cur=z2, odo_next=z3)
-            xs = lm_minimize(lambda xx: one_sided_residuals(xx, prob, w),
-                             lambda xx: one_sided_jacobian(xx, prob, w),
-                             xp, iters=iters)
+            xs = lm_minimize(*_one_sided(prob, w, config), xp, iters=iters)
             # empty frames take the pure kinematic increment; solved frames
             # keep their absolute pose
             xs = torch.where(empty[:, None], xp, xs)
@@ -459,7 +481,7 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
         pts_prev = torch.zeros((C, B, 2), dtype=dtype, device=dev)
         for _ in range(R):
             x_prev_arr = torch.cat([x_last[None], x[:-1]])
-            xp = unicycle_step(x_prev_arr, u_prev_c, deltat)
+            xp = kinematics(x_prev_arr, u_prev_c, deltat)
             pts = beams_to_world(xp, dist_c, ang_c)
             lab, n_new, matched, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
             pts_prev = pts
@@ -468,7 +490,7 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
         if config.init_final_assoc:
             # final map-build from the converged poses (no solves)
             x_prev_arr = torch.cat([x_last[None], x[:-1]])
-            xp = unicycle_step(x_prev_arr, u_prev_c, deltat)
+            xp = kinematics(x_prev_arr, u_prev_c, deltat)
             pts = beams_to_world(xp, dist_c, ang_c)
             lab, n_new, _, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
 
@@ -619,15 +641,18 @@ def _running_means_full(pts, lab, old_map, n_new):
     return MapState(final_pos, cum_cnt[-1], old_map.nact + n_new), matched
 
 
-def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t):
+def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None):
     """Two-sided LM solves for the poses ``ts`` (K,) as one batch of K.
 
-    The last real frame ``last_t`` is solved with the one-sided cost folded
-    into the batch: zeroing the 6 forward rows of its residual and of its
-    Jacobian leaves exactly the one-sided system, and its start point is
-    the kinematic prediction (ICM_ROS.py:153-156, 254-260).
+    With ``last_t`` the last real frame is solved with the one-sided cost
+    folded into the batch: zeroing the 6 forward rows of its residual (and
+    of the analytic Jacobian) leaves exactly the one-sided system, and its
+    start point is the kinematic prediction (ICM_ROS.py:153-156, 254-260).
+    That needs the default [forward (6), one-sided] stacking; without
+    ``last_t`` every pose takes the plain two-sided cost.
     """
     T = x.shape[0]
+    model = _model_of(config)
     dist_c, ang_c, mask_c, matched_c = obs
     tm1 = torch.clamp(ts - 1, min=0)
     tp1 = torch.clamp(ts + 1, max=T - 1)
@@ -636,22 +661,39 @@ def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t):
         matched=matched_c[ts], x_prev=x[tm1], u_prev=data.u[tm1],
         odo_prev=data.odom[tm1], odo_cur=data.odom[ts],
         x_next=x[tp1], u_cur=data.u[ts], odo_next=data.odom[tp1])
+    resid2, jac2 = _two_sided(prob, w, config)
+    x_init = (x[tm1] + x[tp1]) / 2.0
+    if last_t is None:
+        return lm_minimize(resid2, jac2, x_init, iters=config.pose_gn_iters)
     is_last = (ts == last_t)[:, None]
-    x_init = torch.where(is_last,
-                         unicycle_step(x[tm1], data.u[tm1], config.deltat),
-                         (x[tm1] + x[tp1]) / 2.0)
-    m = 12 + 2 * dist_c.shape[1]
-    fold = is_last & (torch.arange(m, device=x.device) < 6)   # (K, m)
+    x_init = torch.where(
+        is_last, model.kinematics(x[tm1], data.u[tm1], config.deltat), x_init)
 
-    def resid(xx):
-        r = two_sided_residuals(xx, prob, w)
-        return torch.where(fold, 0.0, r)
+    def fold(v):
+        """Zero the last frame's 6 forward rows of v (K, m) or (K, m, 3)."""
+        rows = is_last & (torch.arange(v.shape[1], device=v.device) < 6)
+        return torch.where(rows.view(rows.shape + (1,) * (v.dim() - 2)),
+                           0.0, v)
+    return lm_minimize(lambda xx: fold(resid2(xx)),
+                       lambda xx: fold(jac2(xx)),
+                       x_init, iters=config.pose_gn_iters)
 
-    def jac(xx):
-        J = two_sided_jacobian(xx, prob, w)
-        return torch.where(fold[..., None], 0.0, J)
 
-    return lm_minimize(resid, jac, x_init, iters=config.pose_gn_iters)
+def _solve_one_at(data: SweepData, x, obs, config, w, t: int):
+    """One-sided LM solve (3,) of frame ``t`` (the trajectory's last) from
+    its kinematic prediction, against the current ``x``."""
+    dist_c, ang_c, mask_c, matched_c = obs
+    tm1 = max(t - 1, 0)
+    z3 = torch.zeros((1, 3), dtype=x.dtype, device=x.device)
+    prob = PoseProblem(
+        dist=dist_c[t][None], ang=ang_c[t][None], mask=mask_c[t][None],
+        matched=matched_c[t][None], x_prev=x[tm1][None],
+        u_prev=data.u[tm1][None], odo_prev=data.odom[tm1][None],
+        odo_cur=data.odom[t][None], x_next=z3, u_cur=z3[:, :2],
+        odo_next=z3)
+    x_init = _predict(_model_of(config), x[tm1], data.u[tm1], config.deltat)
+    return lm_minimize(*_one_sided(prob, w, config), x_init[None],
+                       iters=config.pose_gn_iters)[0]
 
 
 def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
@@ -659,7 +701,12 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
                          ) -> Tuple[MapState, torch.Tensor]:
     """One ICM sweep: batched association, then ``pose_passes`` red-black
     half-pass pairs or, with ``pose_update="jacobi"``, full Jacobi passes
-    (every pose against the previous pass's neighbours)."""
+    (every pose against the previous pass's neighbours).
+
+    The last real frame ``last_t`` rides the batch (``_solve_two_at``)
+    unless the model replaces or extends the two-sided cost; then it is
+    solved on its own and written into its slot of the batch.
+    """
     T = x.shape[0]
     if last_t is None:
         last_t = T - 1
@@ -672,9 +719,17 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
         data_c = _per_frame_ang(data)
     _, final_map, matched = batched_associate(data_c, old_map, x, config)
     obs = (data_c.dist, data_c.ang, data_c.mask, matched)
+    model = _model_of(config)
+    fold_last = model.two_sided is None and model.extra_two_sided is None
 
-    def solve_at(x, ts):
-        cand = _solve_two_at(data, x, obs, config, w, ts, last_t)
+    def solve_at(x, ts, start, stride):
+        """Solve the poses ``ts`` = start, start + stride, ... < T."""
+        cand = _solve_two_at(data, x, obs, config, w, ts,
+                             last_t if fold_last else None)
+        if not fold_last and last_t >= start \
+                and (last_t - start) % stride == 0:
+            cand[(last_t - start) // stride] = _solve_one_at(
+                data, x, obs, config, w, last_t)
         tm1 = torch.clamp(ts - 1, min=0)
         tp1 = torch.clamp(ts + 1, max=last_t)
         x_avg = (x[tm1] + x[tp1]) / 2.0
@@ -685,11 +740,11 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
     if config.pose_update == "jacobi":
         every = torch.arange(1, T, device=x.device)
         for _ in range(config.pose_passes):
-            x = solve_at(x, every)
+            x = solve_at(x, every, 1, 1)
         return final_map, x
     odd = torch.arange(1, T, 2, device=x.device)
     even = torch.arange(2, T, 2, device=x.device)
     for _ in range(config.pose_passes):
-        x = solve_at(x, odd)
-        x = solve_at(x, even)
+        x = solve_at(x, odd, 1, 2)
+        x = solve_at(x, even, 2, 2)
     return final_map, x

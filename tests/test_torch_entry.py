@@ -134,16 +134,24 @@ def test_resolve_config_matches_jax(small_data, mode, obs_cap):
 
 
 def test_check_supported():
-    for kw in (dict(model=object()), dict(sweep_mode="ba"),
-               dict(sweep_mode="windowed_ba")):
-        with pytest.raises(NotImplementedError):
-            ticm.check_supported(TC(**kw))
+    """Every configuration the JAX ``run`` takes passes; a model that is
+    not the port's EnergyModel (JAX hooks are JAX code) raises."""
+    from icm_slam_tpu.core.energy import EnergyModel as JEM
+    from icm_slam_tpu_torch.core.energy import EnergyModel as TEM
+    with pytest.raises(TypeError):
+        ticm.check_supported(TC(model=JEM()))
     for kw in (dict(sweep_mode="sequential"), dict(init_mode="sequential"),
                dict(replicate_new_obs_quirk=False),
-               dict(pose_update="jacobi"), dict(init_mode="batched")):
+               dict(pose_update="jacobi"), dict(init_mode="batched"),
+               dict(sweep_mode="ba"), dict(sweep_mode="windowed_ba")):
         ticm.check_supported(TC(**kw))
         assert ticm.use_batched_init(TC(**kw)) == jicm.use_batched_init(
             JC(**kw))
+    for kw in (dict(), dict(init_mode="batched"),
+               dict(sweep_mode="sequential")):
+        ticm.check_supported(TC(model=TEM(), **kw))
+        assert ticm.use_batched_init(TC(model=TEM(), **kw)) == \
+            jicm.use_batched_init(JC(model=JEM(), **kw))
 
 
 # --- datasets and utils -------------------------------------------------------
@@ -371,9 +379,19 @@ def test_cli_run_and_replay(tmp_path, capsys):
 
 
 def test_cli_refuses_what_the_port_lacks(capsys):
-    for flag in ("--pallas", "--pallas-fused", "--plot-live", "--loop-close"):
+    """The TPU knobs and plotting are argparse errors; ``--loop-close`` and
+    the BA modes are flags of the port (their parity: test_torch_ba.py,
+    test_torch_loop_closure.py)."""
+    for flag in ("--pallas", "--pallas-fused", "--plot-live"):
         with pytest.raises(SystemExit):
             cli.main(["run", "--dataset", "synthetic", flag])
+    if not torch.cuda.is_available():
+        # past argparse, the default device refuses to fall back
+        for extra in (["--loop-close"], ["--mode", "ba"],
+                      ["--mode", "windowed_ba"]):
+            with pytest.raises(RuntimeError):
+                cli.main(["run", "--dataset", "synthetic", "--frames", "20",
+                          *extra])
     with pytest.raises(SystemExit):
         cli.main(["run", "--plot", "d"])
     if not torch.cuda.is_available():

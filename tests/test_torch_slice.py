@@ -1,7 +1,7 @@
 """The port's main path end to end against icm_slam_tpu.solver.icm.run, and
-the port's boundaries: no JAX (and no PyYAML) import, no CPU fallback for
-a CUDA device, NotImplementedError on what is not ported, chip_smoke.py
-failing without a GPU.
+the port's boundaries: no JAX (and no PyYAML) import, ``models/``
+included, no CPU fallback for a CUDA device, TypeError on a model that is
+not the port's, chip_smoke.py failing without a GPU.
 
 The world resolves to obs_cap=16, map_run_cap=128 < L=256: the capped
 branch, which JAX runs through its fused association kernel with
@@ -83,12 +83,12 @@ def test_timings_callback_verbose(capsys):
     dict(pose_update="jacobi"), dict(sweep_mode="ba"),
     dict(sweep_mode="windowed_ba")])
 def test_unported_configs_raise(kw):
-    """Custom model hooks and the BA sweep modes raise; the configurations
-    ported since run one sweep."""
+    """A model that is not the port's EnergyModel raises TypeError; every
+    other configuration, the BA sweep modes included, runs one sweep."""
     ds = synthetic_world(T=20, n_landmarks=4, seed=0)
     cfg = TC(L=256, N=1, **kw)
-    if "model" in kw or kw.get("sweep_mode") in ("ba", "windowed_ba"):
-        with pytest.raises(NotImplementedError):
+    if "model" in kw:
+        with pytest.raises(TypeError):
             ticm.run(ds, cfg, "cpu")
         return
     ticm.check_supported(cfg)
@@ -120,6 +120,10 @@ def test_port_imports_no_jax():
         "import icm_slam_tpu_torch.utils.checkpoint\n"
         "import icm_slam_tpu_torch.utils.export\n"
         "import icm_slam_tpu_torch.utils.metrics\n"
+        "import icm_slam_tpu_torch.models.bundle_adjustment\n"
+        "import icm_slam_tpu_torch.models.windowed_ba\n"
+        "import icm_slam_tpu_torch.models.loop_closure\n"
+        "import icm_slam_tpu_torch.models.pose_graph\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
@@ -127,6 +131,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'icm_slam_tpu']\n"
         "assert not bad, bad\n"
+        "assert 'icm_slam_tpu_torch.models.loop_closure' in sys.modules\n"
         "print('ok', len([m for m in sys.modules"
         " if m.startswith('icm_slam_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
