@@ -59,9 +59,10 @@ nonzero and the final line is not printed:
 11. the entry points: ``api.run_offline`` with checkpoints (N=6, every 2)
    and a resume after deleting the last two checkpoints (census equal,
    poses atol 1e-3: the card's scatters add in no fixed order);
-   ``api.run_online`` over ``stream_dataset`` with the sequential init
-   against the offline causal init from the same first pose (census
-   equal, x_init atol 1e-3); ``python -m icm_slam_tpu_torch run`` and
+   ``api.run_online`` over ``stream_dataset`` of the world's first 600
+   frames with the sequential init against the offline causal init from
+   the same first pose (census equal, x_init atol 1e-3; the whole world
+   until PR 5); ``python -m icm_slam_tpu_torch run`` and
    ``replay`` as subprocesses on the card, each file they write checked;
 12. the kernel table: the card's launch floor, then for every shape a
    path above gave a kernel (KERNEL_SHAPES; the runs' launches are
@@ -105,16 +106,50 @@ nonzero and the final line is not printed:
    checked.
    Phases 13, 15 and 16 also profile one sweep from the run's state
    (kernel launches, host syncs), as phase 7 does.
+18. fleet mode (``solver.icm.run_batched``): (a) both kernels with a world
+   axis against their plain versions, K1 at (8, 1833, 48, 128) and
+   (8, 1833, 152, 128), K2 at (4, 1833, 48, 1024) and (4, 1833, 104, 1024)
+   through the wrapper and every variant, another live count in every
+   world (0, 1, ragged, the width): labels exact, d2min bitwise, K2
+   distances within 1e-5, sums within 1e-4 and bitwise run to run, each
+   world's slice bitwise the launch on that world alone; (b) two small
+   fleets against JAX's ``run_batched`` (tests/golden/
+   torch_fleet_synth.npz): the worlds of tests/test_torch_fleet.py (census
+   exact, poses and map within 1e-3) and the rounding-sensitive worlds of
+   tests/test_fleet.py (census exact, ATE within 10%); (c) the fleet curve,
+   ``synthetic_world(T=1833, seed=s)`` for s < W with ``ICMConfig()``,
+   W = 1, 2, 4, 8, each timed after a warm run: the merged config's
+   branch, prepare_s, init_s, refine_per_iter_s, pipeline_s, per_world_s
+   and the aggregate refine frames/s W * T / refine_per_iter_s; K1
+   exactly N times at every W; W=2's worlds against JAX's run_batched
+   (census exact, ATE within 10%), W=8's first and last world against
+   ``run()`` with the merged config (census exact, ATE within 10%, poses
+   bitwise), and the last world's ``run()`` twice (bitwise: every scatter
+   adds in a fixed order, ``landmark_map.add_rows``); (d)
+   kernel launches, host syncs and busy time of one fleet sweep and of
+   the init's first 8 chunks at W=8 against W=1's (phase 7's profiles:
+   ``run()`` is the fleet of one): launches within 5%, the same syncs, 1
+   a sweep; (e) an uncapped fleet of four (map_run_cap=0, N=3):
+   K2 exactly N times, each world's census and poses those of ``run()``.
+   The fleet shapes have rows in the kernel table (phase 12), their bound
+   W times a world's.
+19. ``python -m icm_slam_tpu_torch online`` as a subprocess on the card
+   against a rosbridge loopback (``runtime.fake_rosbridge``) that this
+   script serves, its ``roslibpy`` the loopback's client (a one-line
+   module on its PYTHONPATH), fed 600 frames of ``synthetic_world()`` by
+   ``publish_to_rosbridge`` at 50 times real time and stopped by the
+   SetBool service: its file against ``api.run_online`` over the same
+   frames (census equal, x_init within 1e-3); the synchronizer's stats.
 
 ``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
 package under ROOT (what each of those turns runs).
 
-Every run of a main path (phases 4, 5, 8, 9, 11, 13-16) counts the kernel
-launches with the counters set to 0 just before it and read just after;
-the kernels' JSON line sums them.  A ``wall_seconds`` line gives each
-phase's seconds.  Then the card's ``nvidia-smi`` line
-and, last, ``{"ok": true, "device": {...}}``.  Without CUDA the script
-fails.
+Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18) counts the
+kernel launches with the counters set to 0 just before it and read just
+after; the kernels' JSON line sums them.  A ``wall_seconds`` line gives
+each phase's seconds (standard error has each as it ends).  Then the
+card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
+Without CUDA the script fails.
 """
 import functools
 import json
@@ -131,8 +166,13 @@ GOLDEN_ENGINES = os.path.join(HERE, "tests", "golden",
                               "torch_engines_synth_T1833.npz")
 GOLDEN_MODELS = os.path.join(HERE, "tests", "golden",
                              "torch_models_synth.npz")
-# scratch files of phase 11, inside the checkout (build/ is not committed)
+# scratch files of phases 11 and 19, inside the checkout (build/ is not
+# committed)
 WORK = os.path.join(HERE, "build", "chip_smoke")
+# frames of the T=1833 world that phase 11 streams through run_online and
+# the offline causal init it is held to (the whole world until PR 5; cut
+# to keep the script's time as phases 18-19 joined)
+ONLINE_FRAMES = 600
 
 
 def emit(**kw):
@@ -236,7 +276,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def kernel_bound_us(kind, T, B, K, nact):
+def kernel_bound_us(kind, T, B, K, nact, W=1):
     """The least time the card could take, in microseconds, and what
     bounds it: 5 flops per point and live column (two subtractions, two
     products, one sum) over the f32 peak, against every input byte read
@@ -248,10 +288,22 @@ def kernel_bound_us(kind, T, B, K, nact):
     byts = n * (8 + 4 + 4) + 8 * live + 4
     if kind == "k1":
         byts += n + 12 * T * K
-    ops_us = flops / PEAK_F32_FLOPS * 1e6
-    bytes_us = byts / PEAK_BYTES_PER_S * 1e6
+    ops_us = W * flops / PEAK_F32_FLOPS * 1e6
+    bytes_us = W * byts / PEAK_BYTES_PER_S * 1e6
     return max(ops_us, bytes_us), ("operations" if ops_us >= bytes_us
                                    else "bytes")
+
+
+def dims(shape):
+    """(W, T, B, K) of a shape; a shape of three is one world."""
+    return (1, *shape) if len(shape) == 3 else tuple(shape)
+
+
+def shape_bound_us(kind, shape, nact):
+    """The bound of a call at ``shape``: a fleet's is W times one
+    world's (every world reads and writes its own)."""
+    W, T, B, K = dims(shape)
+    return kernel_bound_us(kind, T, B, K, nact, W)
 
 
 # the shapes the paths give the kernels, each with the seed of its inputs:
@@ -259,25 +311,46 @@ def kernel_bound_us(kind, T, B, K, nact):
 # 14); K2 on the uncapped sweep, on the non-quirk sweep (the first 128
 # rows of a table of 2048) and once per frame in landmark_map.update (all
 # beams at L=1024, compacted beams at L=2048 and, on the small world, at
-# L=256)
+# L=256); then the fleets of phase 18, (W, T, B, K), B the widest beam
+# cap of the fleet's worlds: K1 on the fleet curve's capped sweeps at
+# W = 2, 4, 8 and on the small capped fleet, K2 on the uncapped fleet of
+# four and on the small uncapped fleet
 KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k2", (1833, 48, 128), 7), ("k2", (1, 181, 1024), 3),
                  ("k2", (1, 48, 2048), 8), ("k1", (240, 16, 128), 14),
-                 ("k2", (1, 16, 256), 15))
-# K2 shapes whose table is a view of the first rows of one this wide, as
-# the non-quirk sweep passes it
-TABLE_WIDTH = {(1833, 48, 128): 2048}
+                 ("k2", (1, 16, 256), 15),
+                 ("k1", (2, 1833, 96, 128), 20),
+                 ("k1", (4, 1833, 104, 128), 30),
+                 ("k1", (8, 1833, 152, 128), 40),
+                 ("k2", (4, 1833, 104, 1024), 50),
+                 ("k1", (3, 240, 48, 128), 60),
+                 ("k2", (3, 300, 136, 256), 70))
+# tables whose first K columns a kernel searches, as the paths pass them:
+# the non-quirk sweep's K2, and a fleet's K1 (the first map_run_cap
+# columns of each world's L)
+TABLE_WIDTH = {("k2", (1833, 48, 128)): 2048,
+               ("k1", (2, 1833, 96, 128)): 1024,
+               ("k1", (4, 1833, 104, 128)): 1024,
+               ("k1", (8, 1833, 152, 128)): 1024,
+               ("k1", (3, 240, 48, 128)): 256}
 KERNEL_NAME_PART = {"k1": "assoc_sums", "k2": "nearest_landmark"}
 
 
 def shape_inputs(kind, shape):
     """The inputs of one row of KERNEL_SHAPES (any other shape: seed 9);
-    a K2 table in TABLE_WIDTH is the first rows of a wider one."""
+    a table in TABLE_WIDTH is the first rows of a wider one.  A fleet's
+    worlds take seeds seed, seed + 1, ..."""
+    import torch
     seed = {s[:2]: s[2] for s in KERNEL_SHAPES}.get((kind, shape), 9)
-    T, B, K = shape
-    wide = TABLE_WIDTH.get(shape, K) if kind == "k2" else K
-    pts, mp, mask = kernel_inputs(T, B, wide, seed=seed, pick_from=K)
-    return pts, mp[:K], mask
+    W, T, B, K = dims(shape)
+    wide = TABLE_WIDTH.get((kind, shape), K)
+    worlds = [kernel_inputs(T, B, wide, seed=seed + w, pick_from=K)
+              for w in range(W)]
+    if len(shape) == 3:
+        pts, mp, mask = worlds[0]
+        return pts, mp[:K], mask
+    pts, mp, mask = (torch.stack(f) for f in zip(*worlds))
+    return pts, mp[:, :K], mask
 
 
 def kernel_call(kind, shape, nact, plain=False):
@@ -288,7 +361,7 @@ def kernel_call(kind, shape, nact, plain=False):
     from icm_slam_tpu_torch.ops import assoc as k2
     from icm_slam_tpu_torch.ops import assoc_sums as k1
     pts, mp, mask = shape_inputs(kind, shape)
-    n = torch.tensor(nact, dtype=torch.int32, device="cuda")
+    n = count_tensor(nact, None if len(shape) == 3 else dims(shape)[0])
     if kind == "k1":
         if plain:
             return lambda: k1.associate_and_sums_plain(pts, mp, mask, n, 1.0)
@@ -305,18 +378,20 @@ def kernel_variant(kind, shape):
     mod = k2 if kind == "k2" else k1
     if not hasattr(mod, "launch_plan"):
         return "one launch shape"
-    plan = mod.launch_plan(shape[0] * shape[1], shape[2]) if kind == "k2" \
-        else mod.launch_plan(*shape)
-    return " ".join(f"{k}={v}" for k, v in plan._asdict().items())
+    W, T, B, K = dims(shape)
+    plan = mod.launch_plan(T * B, K) if kind == "k2" \
+        else mod.launch_plan(T, B, K)
+    worlds = f"{W} worlds, each " if W > 1 else ""
+    return worlds + " ".join(f"{k}={v}" for k, v in plan._asdict().items())
 
 
 def kernel_row(kind, shape, nact, profiled=True):
     """One row of the kernel table, every time measured here."""
     fn = kernel_call(kind, shape, nact)
-    small = shape[0] == 1
+    small = dims(shape)[1] == 1
     own = graph_us(fn, reps=400 if small else 100)
     issue = cuda_ms(fn, reps=400 if small else 100) * 1e3
-    bound, by = kernel_bound_us(kind, *shape, nact)
+    bound, by = shape_bound_us(kind, shape, nact)
     plain_ms = cuda_ms(kernel_call(kind, shape, nact, plain=True), reps=10)
     row = dict(kernel=kind, shape=list(shape), nact=nact,
                variant=kernel_variant(kind, shape), own_us=own,
@@ -336,13 +411,18 @@ def launch_floor():
                 profiler_us=profiler_us(fn, KERNEL_NAME_PART["k2"], 50))
 
 
-def kernel_table(nacts_as_run, profiled=True):
+def kernel_table(nacts_as_run, profiled=True, worlds=True):
     """Rows for every shape at nact = the table's width and at each live
-    count the runs left (``nacts_as_run``: kind -> counts)."""
+    count the runs left (``nacts_as_run``: kind -> counts, or (kind,
+    shape) -> counts for a shape of its own; a fleet's row gives every
+    world the same count).  ``worlds=False`` leaves out the fleets'
+    shapes (a package from before fleet mode has none)."""
     rows = []
     for kind, shape, _ in KERNEL_SHAPES:
-        for nact in [shape[2]] + sorted(set(nacts_as_run[kind]),
-                                        reverse=True):
+        if len(shape) == 4 and not worlds:
+            continue
+        counts = nacts_as_run.get((kind, shape), nacts_as_run[kind])
+        for nact in [shape[-1]] + sorted(set(counts), reverse=True):
             rows.append(kernel_row(kind, shape, nact, profiled))
     return rows
 
@@ -360,7 +440,8 @@ def time_kernels_main(root, nacts):
     _build.library()
     print(json.dumps(dict(root=os.path.relpath(root, HERE),
                           floor=launch_floor(),
-                          rows=kernel_table(nacts))), flush=True)
+                          rows=kernel_table(nacts, worlds=False))),
+          flush=True)
 
 
 def k2_variants_timed(nacts):
@@ -373,16 +454,18 @@ def k2_variants_timed(nacts):
     for kind, shape, _ in KERNEL_SHAPES:
         if kind != "k2":
             continue
-        T, B, L = shape
+        W, T, B, L = dims(shape)
         pts, mp, _ = shape_inputs(kind, shape)
-        counts = [L] + sorted({n for n in nacts if n < L}, reverse=True)
+        counts = [L] + sorted({n for n in nacts.get((kind, shape),
+                                                    nacts["k2"]) if n < L},
+                              reverse=True)
         row = dict(shape=list(shape), nact=counts,
                    picked=k2.launch_plan(T * B, L).lanes, own_us={})
         for lanes, threads in ((32, 256), (1, 128)):
             plan = k2.plan_for(T * B, L, lanes=lanes, threads=threads)
             times = []
             for n in counts:
-                nact = count_tensor(n)
+                nact = count_tensor(n, None if len(shape) == 3 else W)
                 times.append(graph_us(
                     lambda: k2.launch(pts, mp, nact, plan),
                     reps=400 if T == 1 else 100, replays=5))
@@ -406,9 +489,14 @@ def kernel_inputs(T, B, K, seed, pick_from=None):
             torch.from_numpy(mask).to(dev))
 
 
-def count_tensor(n):
+def count_tensor(n, W=None):
+    """``n`` as a live count on the card: 0-d, or (W,) with each world's
+    count (``n`` a number is every world's)."""
     import torch
-    return torch.tensor(n, dtype=torch.int32, device="cuda")
+    if W is None:
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+    return torch.as_tensor(n, dtype=torch.int32, device="cuda").expand(
+        W).contiguous()
 
 
 def hold_k1(pts, mp, mask, n, dist_thr, what):
@@ -783,18 +871,19 @@ def phase_profile(smi):
     F = 8 * cfg.init_chunk_len
     head = data._replace(dist=data.dist[:F], mask=data.mask[:F],
                          odom=data.odom[:F], u=data.u[:F])
-    emit(phase="init_profile", frames=F, **launches_and_syncs(
-        lambda: init_sweep_batched(head, seed, x0, cfg, w)),
-        note=f"init_sweep_batched over frames 0-{F - 1} (8 chunks of "
-             f"{cfg.init_chunk_len} frames, R=2)", card=smi)
+    init = launches_and_syncs(
+        lambda: init_sweep_batched(head, seed, x0, cfg, w))
+    emit(phase="init_profile", frames=F, **init,
+         note=f"init_sweep_batched over frames 0-{F - 1} (8 chunks of "
+              f"{cfg.init_chunk_len} frames, R=2)", card=smi)
 
     cur = filter_map(state, cfg.cota, cfg.dist_thr, live_cap=cfg.map_run_cap)
     data = icm.hoist_compaction(data, cfg)
     first_nact = int(cur.nact)
     cur, x, wit = icm._refine_step(data, cur, x, cfg, w)
-    emit(phase="refine_sweep_profile", **launches_and_syncs(
-        lambda: icm._refine_step(data, cur, x, cfg, w)),
-        note="one refine sweep + map filter, after one warm sweep",
+    sweep = launches_and_syncs(lambda: icm._refine_step(data, cur, x, cfg, w))
+    emit(phase="refine_sweep_profile", **sweep,
+         note="one refine sweep + map filter, after one warm sweep",
         live_columns=dict(raw_after_init=raw_init,
                           first_sweep_sees=first_nact,
                           raw_after_first_sweep=int(wit[0]),
@@ -802,8 +891,10 @@ def phase_profile(smi):
         card=smi)
     # the live counts K1 meets in the first sweeps, before the map settles,
     # and the raw count an init leaves, which the per-frame K2 of a causal
-    # init grows towards
-    return {"k1": [first_nact, int(cur.nact)], "k2": [raw_init]}
+    # init grows towards; the profiles are also phase 18's fleet of one
+    # (run() is the batched engine with W = 1)
+    return ({"k1": [first_nact, int(cur.nact)], "k2": [raw_init]},
+            dict(init_8_chunks=init, sweep=sweep))
 
 
 def counted(fn):
@@ -1026,8 +1117,10 @@ def phase_entry_points(seq_res, smi):
                resume_refine_per_iter_s=res.timings["refine_per_iter_s"])
 
     # online: the streamed causal init against the offline one from the
-    # same first pose (the stream starts at the first odometry reading)
+    # same first pose (the stream starts at the first odometry reading),
+    # on the world's first ONLINE_FRAMES frames
     seq0 = ICMConfig(init_mode="sequential", N=0)
+    ds = ds.slice(ONLINE_FRAMES)
     t0 = time.perf_counter()
     onl, n = counted(lambda: api.run_online(stream_dataset(ds), seq0, "cuda",
                                             refine=False))
@@ -1045,8 +1138,9 @@ def phase_entry_points(seq_res, smi):
           f"run_online x_init differs by {out['online_x_init_max_abs_diff']}")
     out.update(online_census=onl.map_pos.shape[0], online_s=online_s,
                online_frames_per_s=ds.T / online_s,
+               online_frames=ds.T,
                online_vs_phase8_x_init_max_abs_diff=float(
-                   np.abs(onl.x_init - seq_res.x_init).max()))
+                   np.abs(onl.x_init - seq_res.x_init[:ds.T]).max()))
 
     # the CLI, as a user runs it, in processes of its own
     files = {k: os.path.join(WORK, f) for k, f in (
@@ -1379,6 +1473,470 @@ def phase_loop_closure(gm, smi):
          close_loops_kwargs=kwargs, **out, card=smi)
 
 
+GOLDEN_FLEET = os.path.join(HERE, "tests", "golden", "torch_fleet_synth.npz")
+FLEET_WS = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def fleet_worlds():
+    """``synthetic_world(T=1833, seed=s)``, s = 0..7, with their truths:
+    the fleet curve's worlds (world 0 is the main path's)."""
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    return [world_1833()] + [
+        tuple(synthetic_world(T=1833, seed=s, return_truth=True)[:2])
+        for s in range(1, max(FLEET_WS))]
+
+
+def hold_k1_worlds(shape, nacts, dist_thr=1.0):
+    """K1 with a world axis at ``shape``, another live count in each world:
+    against its plain version (labels exact, d2min bitwise, sums within
+    1e-4, bitwise run to run) and, world by world, bitwise against the
+    launch on that world alone.  Returns the sums' error."""
+    import torch
+    from icm_slam_tpu_torch.ops import assoc_sums as k1
+    pts, mp, mask = shape_inputs("k1", shape)
+    W = pts.shape[0]
+    nact = count_tensor(nacts, W)
+    out = k1.associate_and_sums(pts, mp, mask, nact, dist_thr)
+    again = k1.associate_and_sums(pts, mp, mask, nact, dist_thr)
+    plain = k1.associate_and_sums_plain(pts, mp, mask, nact, dist_thr)
+    torch.cuda.synchronize()
+    what = f"K1 {shape} nact={list(nacts)}"
+    check(torch.equal(out[0], plain[0]), f"{what}: labels differ")
+    check(torch.equal(out[1], plain[1]), f"{what}: d2min not bitwise")
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"{what}: two runs differ")
+    err = float((out[2] - plain[2]).abs().max())
+    check(err <= 1e-4, f"{what}: sums differ by {err}")
+    for w in range(W):
+        one = k1.associate_and_sums(pts[w], mp[w].contiguous(), mask[w],
+                                    nact[w], dist_thr)
+        check(all(torch.equal(a[w], b) for a, b in zip(out, one)),
+              f"{what}: world {w} differs from its launch alone")
+    return err
+
+
+def hold_k2_worlds(shape, nacts):
+    """K2 with a world axis at ``shape``, through the wrapper and with
+    every variant, another live count in each world: against its plain
+    version (labels exact, distances within 1e-5) and, world by world,
+    bitwise against the same plan's launch on that world alone."""
+    import torch
+    from icm_slam_tpu_torch.ops import assoc as k2
+    pts, mp, _ = shape_inputs("k2", shape)
+    W, T, B, L = dims(shape)
+    nact = count_tensor(nacts, W)
+    lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
+    fin = torch.isfinite(dist_p)
+    err = 0.0
+    for plan in [None] + k2_variants(T * B, L):
+        what = f"K2 {shape} nact={list(nacts)} plan={plan}"
+        lab, dist = (k2.nearest_landmark(pts, mp, nact) if plan is None
+                     else k2.launch(pts, mp, nact, plan))
+        torch.cuda.synchronize()
+        check(torch.equal(lab, lab_p), f"{what}: labels differ")
+        check(torch.equal(fin, torch.isfinite(dist)),
+              f"{what}: infinite distances differ")
+        e = float((dist - dist_p)[fin].abs().max()) if bool(fin.any()) \
+            else 0.0
+        check(e <= 1e-5, f"{what}: distances differ by {e}")
+        err = max(err, e)
+        for w in range(W):
+            one = (k2.nearest_landmark(pts[w], mp[w].contiguous(), nact[w])
+                   if plan is None else
+                   k2.launch(pts[w], mp[w].contiguous(), nact[w], plan))
+            check(torch.equal(lab[w], one[0]) and torch.equal(dist[w], one[1]),
+                  f"{what}: world {w} differs from its launch alone")
+    return err
+
+
+def phase_fleet_kernels():
+    """18 (a): both kernels with a world axis, at the issue's shapes and at
+    the largest shapes the fleets give them."""
+    k1_nacts = (0, 1, 7, 37, 64, 100, 127, 128)
+    err1 = max(hold_k1_worlds(shape, k1_nacts)
+               for shape in ((8, 1833, 48, 128), (8, 1833, 152, 128)))
+    err2 = max(hold_k2_worlds(shape, (0, 1, 517, 1024))
+               for shape in ((4, 1833, 48, 1024), (4, 1833, 104, 1024)))
+    emit(phase="fleet_kernels_vs_plain",
+         k1_shapes=[[8, 1833, 48, 128], [8, 1833, 152, 128]],
+         k1_nact_per_world=list(k1_nacts),
+         k2_shapes=[[4, 1833, 48, 1024], [4, 1833, 104, 1024]],
+         k2_nact_per_world=[0, 1, 517, 1024], labels="exact",
+         d2min_and_distances="bitwise (K2 within 1e-5 of plain)",
+         sums_run_to_run="bitwise", each_world_vs_alone="bitwise",
+         k1_sums_max_abs_err=err1, k2_dist_max_abs_err=err2)
+    return dict(k1=err1, k2=err2)
+
+
+def fleet_of(golden, prefix, worlds_kw, cfg):
+    """The golden fleet ``prefix``: its worlds (checksums checked) and the
+    port's run_batched of them, launches counted."""
+    from icm_slam_tpu_torch.data.datasets import (synthetic_world,
+                                                  world_checksum)
+    from icm_slam_tpu_torch.solver.icm import run_batched
+    worlds = [synthetic_world(**kw, return_truth=True)[:2]
+              for kw in worlds_kw]
+    for i, (ds, _) in enumerate(worlds):
+        check(world_checksum(ds) == str(golden[f"{prefix}_w{i}_"
+                                               f"world_checksum"]),
+              f"fleet {prefix}: world {i} differs from the golden's")
+    res, n = counted(lambda: run_batched([w[0] for w in worlds], cfg,
+                                         "cuda"))
+    return worlds, res, n
+
+
+def add_counts(total, n):
+    """Add one run's counts (``counted``) into ``total``."""
+    for k in ("k1", "k2"):
+        total[k] += n[k]
+    for key, count in n["shapes"].items():
+        total["shapes"][key] = total["shapes"].get(key, 0) + count
+    return total
+
+
+def phase_fleet_small(gf):
+    """18 (b): two small fleets against JAX's run_batched.  Returns their
+    launches and, per kernel shape, the live counts they left."""
+    import numpy as np
+    from icm_slam_tpu_torch.config import ICMConfig
+    out, launches = {}, {"k1": 0, "k2": 0, "shapes": {}}
+    # the worlds of tests/test_torch_fleet.py: census exact, 1e-3
+    worlds, res, n = fleet_of(
+        gf, "slice3", [dict(T=240, n_landmarks=12, seed=s)
+                       for s in (7, 10, 11)], ICMConfig(L=256, cota=20.0, N=3))
+    check(n["k1"] == 3 and n["k2"] == 0,
+          f"capped small fleet launched K1 {n['k1']}x, K2 {n['k2']}x")
+    errs = {}
+    for i, r in enumerate(res):
+        gc = golden_case(gf, f"slice3_w{i}")
+        check(r.map_pos.shape[0] == int(gc["census"])
+              and np.array_equal(r.map_counts, gc["map_counts"]),
+              f"small fleet world {i}: census {r.map_pos.shape[0]} != "
+              f"JAX's {int(gc['census'])}")
+        for k in ("x_init", "x", "map_pos"):
+            e = float(np.abs(getattr(r, k) - gc[k]).max())
+            check(e <= 1e-3, f"small fleet world {i}: {k} differs from "
+                             f"JAX by {e}")
+            errs[k] = max(errs.get(k, 0.0), e)
+    out["slice3"] = dict(census=[r.map_pos.shape[0] for r in res],
+                         max_abs_diff_vs_jax=errs, tolerance=1e-3)
+    add_counts(launches, n)
+    nacts = {("k1", (3, 240, 48, 128)): out["slice3"]["census"]}
+    # the three worlds of tests/test_fleet.py, rounding-sensitive (their
+    # runs alone differ from JAX's by up to 0.08): census and ATE
+    worlds, res, n = fleet_of(
+        gf, "fleet3", [dict(T=300, n_landmarks=25, seed=s)
+                       for s in (0, 1, 2)], ICMConfig(L=256, cota=10.0, N=4))
+    check(n["k1"] == 0 and n["k2"] == 4,
+          f"uncapped small fleet launched K1 {n['k1']}x, K2 {n['k2']}x")
+    rows = []
+    for i, (r, (_, x_true)) in enumerate(zip(res, worlds)):
+        gc = golden_case(gf, f"fleet3_w{i}")
+        ate, ate_jax = ate_rmse(r.x, x_true), float(gc["ate_rmse"])
+        check(r.map_pos.shape[0] == int(gc["census"]),
+              f"fleet3 world {i}: census {r.map_pos.shape[0]} != JAX's "
+              f"{int(gc['census'])}")
+        check(abs(ate - ate_jax) <= 0.1 * ate_jax,
+              f"fleet3 world {i}: ATE {ate} not within 10% of JAX's "
+              f"{ate_jax}")
+        rows.append(dict(census=r.map_pos.shape[0], ate_rmse_port=ate,
+                         ate_rmse_jax=ate_jax,
+                         x_max_abs_diff_vs_jax=float(
+                             np.abs(r.x - gc["x"]).max())))
+    out["fleet3"] = rows
+    add_counts(launches, n)
+    nacts[("k2", (3, 300, 136, 256))] = [r["census"] for r in rows]
+    emit(phase="fleet_small_vs_jax", **out)
+    return launches, nacts
+
+
+def phase_fleet_curve(gf, smi):
+    """18 (c): run_batched on W full-width worlds, W = 1, 2, 4, 8: a warm
+    run (N=1) first, then the timed run (N=30, launches counted)."""
+    import numpy as np
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import world_checksum
+    from icm_slam_tpu_torch.solver import icm
+    worlds = fleet_worlds()
+    cfg = ICMConfig()
+    curve, launches, nacts = [], {}, {}
+    for W in FLEET_WS:
+        dss = [w[0] for w in worlds[:W]]
+        merged = icm.resolve_fleet_config(
+            cfg, [icm.prepare(ds, cfg, "cuda") for ds in dss])
+        icm.run_batched(dss, cfg, "cuda", n_iters=1)
+        res, n = counted(lambda: icm.run_batched(dss, cfg, "cuda"))
+        check(n["k1"] == cfg.N and n["k2"] == 0,
+              f"W={W} fleet launched K1 {n['k1']}x, K2 {n['k2']}x; want "
+              f"{cfg.N} and 0, one launch a sweep for every world")
+        for r in res:
+            check(np.isfinite(r.x).all() and np.isfinite(r.map_pos).all()
+                  and r.x.shape == (1833, 3), f"W={W}: bad output")
+        t = res[0].timings
+        row = dict(W=W, branch="capped" if merged.map_run_cap else
+                   "uncapped", obs_cap=merged.obs_cap,
+                   map_run_cap=merged.map_run_cap, k1_launches=n["k1"],
+                   census=[r.map_pos.shape[0] for r in res],
+                   prepare_s=t["prepare_s"], init_s=t["init_s"],
+                   refine_per_iter_s=t["refine_per_iter_s"],
+                   pipeline_s=t["pipeline_s"], per_world_s=t["per_world_s"],
+                   refine_frames_per_s=W * 1833 / t["refine_per_iter_s"])
+        if W == 2:
+            agree = []
+            for i, (r, (ds, x_true)) in enumerate(zip(res, worlds)):
+                gc = golden_case(gf, f"big2_w{i}")
+                check(world_checksum(ds) == str(gc["world_checksum"]),
+                      f"fleet world {i} differs from the golden's")
+                agree.append(hold_to_golden(r, x_true, gc,
+                                            f"W=2 fleet world {i}"))
+            row["vs_jax_run_batched"] = agree
+        if W == max(FLEET_WS):
+            # the fleet against run() with the merged config: the same
+            # function, and the scatters add in a fixed order, so the same
+            # bits; and run() twice, the same bits
+            fleet = res
+            solo = [icm.run(dss[i], merged, "cuda") for i in (0, W - 1)]
+            again = icm.run(dss[W - 1], merged, "cuda")
+            check(np.array_equal(again.x, solo[1].x)
+                  and np.array_equal(again.map_pos, solo[1].map_pos),
+                  f"run() of world {W - 1} twice: poses "
+                  f"{float(np.abs(again.x - solo[1].x).max())} apart")
+            rows = []
+            for i, r1 in zip((0, W - 1), solo):
+                x_true = worlds[i][1]
+                ate, ate_solo = ate_rmse(fleet[i].x, x_true), \
+                    ate_rmse(r1.x, x_true)
+                check(fleet[i].map_pos.shape == r1.map_pos.shape,
+                      f"W={W} world {i}: census {fleet[i].map_pos.shape[0]} "
+                      f"!= run()'s {r1.map_pos.shape[0]}")
+                check(abs(ate - ate_solo) <= 0.1 * ate_solo,
+                      f"W={W} world {i}: ATE {ate} not within 10% of "
+                      f"run()'s {ate_solo}")
+                dx = float(np.abs(fleet[i].x - r1.x).max())
+                check(dx == 0.0 and np.array_equal(fleet[i].map_pos,
+                                                   r1.map_pos),
+                      f"W={W} world {i}: poses {dx} from run()'s")
+                rows.append(dict(world=i, census=r1.map_pos.shape[0],
+                                 ate_rmse_fleet=ate, ate_rmse_run=ate_solo,
+                                 x_max_abs_diff=dx))
+            row["vs_run_merged_config"] = rows
+            row["run_twice"] = "bitwise"
+        emit(phase="fleet_curve", **row, card=smi)
+        curve.append(row)
+        launches[f"fleet_w{W}"] = n
+        for key in n["shapes"]:
+            nacts[key] = row["census"]
+    base = curve[0]["refine_frames_per_s"]
+    emit(phase="fleet_curve_summary",
+         W=[r["W"] for r in curve],
+         refine_frames_per_s=[r["refine_frames_per_s"] for r in curve],
+         times_one_world=[r["refine_frames_per_s"] / base for r in curve],
+         init_s=[r["init_s"] for r in curve],
+         refine_per_iter_s=[r["refine_per_iter_s"] for r in curve],
+         note="N=30, ICMConfig(); each W after a warm run of N=1",
+         card=smi)
+    return launches, nacts, curve
+
+
+def phase_fleet_profile(curve, one_world, smi):
+    """18 (d): launches, host syncs and busy time of one fleet sweep (+ map
+    filter) and of the init's first 8 chunks at W = 8, against W = 1's:
+    phase 7's profiles of run() (``one_world``), which runs the same
+    batched engine with W = 1 on world 0."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.mapping.landmark_map import filter_map
+    from icm_slam_tpu_torch.solver import icm
+    from icm_slam_tpu_torch.solver.sweeps import init_sweep_batched
+    worlds = fleet_worlds()
+    per_iter = {r["W"]: r["refine_per_iter_s"] for r in curve}
+    prof = {1: one_world}
+    for W in (max(FLEET_WS),):
+        data, seed, x0, cfg, w = icm.prepare_fleet(
+            [ds for ds, _ in worlds[:W]], ICMConfig(), "cuda")
+        state, x, _ = init_sweep_batched(data, seed, x0, cfg, w)
+        cur = filter_map(state, cfg.cota, cfg.dist_thr,
+                         live_cap=cfg.map_run_cap)
+        F = 8 * cfg.init_chunk_len
+        head = data._replace(dist=data.dist[:, :F], mask=data.mask[:, :F],
+                             odom=data.odom[:, :F], u=data.u[:, :F])
+        init = launches_and_syncs(
+            lambda: init_sweep_batched(head, seed, x0, cfg, w))
+        data = icm.hoist_compaction(data, cfg)
+        cur, x, _ = icm._refine_step(data, cur, x, cfg, w)
+        sweep = launches_and_syncs(
+            lambda: icm._refine_step(data, cur, x, cfg, w))
+        sweep["busy_share_of_timed_sweep"] = (
+            sweep["device_busy_ms"] / (per_iter[W] * 1e3))
+        prof[W] = dict(init_8_chunks=init, sweep=sweep)
+        emit(phase="fleet_sweep_profile", W=W, obs_cap=cfg.obs_cap,
+             **sweep, card=smi)
+        emit(phase="fleet_init_profile", W=W, frames=F, **init,
+             note=f"init_sweep_batched over frames 0-{F - 1} of each world",
+             card=smi)
+    one, many = prof[1], prof[max(FLEET_WS)]
+    one["sweep"]["busy_share_of_timed_sweep"] = (
+        one["sweep"]["device_busy_ms"] / (per_iter[1] * 1e3))
+    emit(phase="fleet_one_world_profile", W=1,
+         sweep_launches=one["sweep"]["kernel_launches"],
+         sweep_host_syncs=one["sweep"]["host_syncs"],
+         sweep_device_busy_ms=one["sweep"]["device_busy_ms"],
+         busy_share_of_timed_sweep=one["sweep"]["busy_share_of_timed_sweep"],
+         init_launches=one["init_8_chunks"]["kernel_launches"],
+         init_host_syncs=one["init_8_chunks"]["host_syncs"],
+         note="phase 7's profiles (refine_sweep_profile, init_profile)",
+         card=smi)
+    for part in ("sweep", "init_8_chunks"):
+        a, b = one[part]["kernel_launches"], many[part]["kernel_launches"]
+        check(abs(b - a) <= 0.05 * a,
+              f"fleet {part}: {b} launches at W={max(FLEET_WS)} against "
+              f"{a} at W=1 (more than 5% apart)")
+        check(one[part]["host_syncs"] == many[part]["host_syncs"],
+              f"fleet {part}: host syncs {one[part]['host_syncs']} at W=1 "
+              f"against {many[part]['host_syncs']}")
+    check(one["sweep"]["host_syncs"] == 1 == many["sweep"]["host_syncs"],
+          f"fleet sweep: host syncs {one['sweep']['sync_sites']} at W=1, "
+          f"{many['sweep']['sync_sites']} at W={max(FLEET_WS)}; want 1")
+    return prof
+
+
+def phase_fleet_uncapped(smi):
+    """18 (e): the uncapped fleet of four (map_run_cap=0, N=3): K2 once a
+    sweep for all worlds; each world's census that of run() with the
+    merged config."""
+    import numpy as np
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.solver import icm
+    dss = [ds for ds, _ in fleet_worlds()[:4]]
+    cfg = ICMConfig(map_run_cap=0, N=3)
+    res, n = counted(lambda: icm.run_batched(dss, cfg, "cuda"))
+    check(n["k2"] == cfg.N and n["k1"] == 0,
+          f"uncapped fleet launched K2 {n['k2']}x, K1 {n['k1']}x; want "
+          f"{cfg.N} and 0")
+    merged = icm.resolve_fleet_config(
+        cfg, [icm.prepare(ds, cfg, "cuda") for ds in dss])
+    solo = [icm.run(ds, merged, "cuda") for ds in dss]
+    census = [r.map_pos.shape[0] for r in res]
+    census_run = [r.map_pos.shape[0] for r in solo]
+    check(census == census_run,
+          f"uncapped fleet census {census} != run()'s {census_run}")
+    check(all(np.array_equal(a.x, b.x) for a, b in zip(res, solo)),
+          "uncapped fleet: poses differ from run()'s")
+    t = res[0].timings
+    emit(phase="fleet_uncapped", W=4, config="ICMConfig(map_run_cap=0, N=3)",
+         k2_launches=n["k2"], census=census, census_run=census_run,
+         poses_vs_run="bitwise",
+         init_s=t["init_s"], refine_per_iter_s=t["refine_per_iter_s"],
+         refine_frames_per_s=4 * 1833 / t["refine_per_iter_s"], card=smi)
+    return n, {key: [r.map_pos.shape[0] for r in res]
+               for key in n["shapes"]}
+
+
+def as_transported(ds, n, max_range):
+    """The first ``n`` frames of ``ds`` as the rosbridge transport delivers
+    them: ranges clipped at the sensor's range (the engine adds the tree
+    radius), the heading through a quaternion, so wrapped into
+    (-pi, pi]."""
+    import math
+    import numpy as np
+    from icm_slam_tpu_torch.data.datasets import Dataset
+    from icm_slam_tpu_torch.runtime.ingest import quat_to_yaw
+    yaw = [quat_to_yaw(0.0, 0.0, math.sin(t / 2), math.cos(t / 2))
+           for t in ds.odom[:n, 2]]
+    odom = np.concatenate([ds.odom[:n, :2], np.array(yaw)[:, None]], 1)
+    return Dataset(np.minimum(ds.scans[:n], max_range), odom,
+                   ds.u[:n].copy(), odom[0].copy(), "transported")
+
+
+def phase_online(smi):
+    """19: ``python -m icm_slam_tpu_torch online`` on the card against a
+    rosbridge loopback served by this process, fed 600 frames of
+    ``synthetic_world()``; its file against ``api.run_online`` on the same
+    frames."""
+    import numpy as np
+    from icm_slam_tpu_torch import api
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.runtime import fake_rosbridge as frb
+    from icm_slam_tpu_torch.runtime.replay import (publish_to_rosbridge,
+                                                   stream_dataset)
+    T = 600
+    ds = synthetic_world().slice(T)
+    yaml = os.path.join(HERE, "configs", "reference.yaml")
+    cfg = ICMConfig.from_yaml(yaml, N=3)
+    # the CLI's process finds roslibpy's stand-in, the loopback client,
+    # on its PYTHONPATH (roslibpy is not installed)
+    shim = os.path.join(WORK, "roslibpy_shim")
+    os.makedirs(shim, exist_ok=True)
+    with open(os.path.join(shim, "roslibpy.py"), "w") as f:
+        f.write("import sys\nfrom icm_slam_tpu_torch.runtime.fake_rosbridge "
+                "import client_module\nsys.modules[__name__] = "
+                "client_module()\n")
+    out = os.path.join(WORK, "online.npz")
+    server = frb.FakeRosBridgeServer().start()
+    sys.modules["roslibpy"] = frb.client_module()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "icm_slam_tpu_torch", "online", "--config",
+         yaml, "--iters", "3", "--host", server.host, "--port",
+         str(server.port), "--duration", "240", "--out", out],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join([shim, HERE])))
+    try:
+        deadline = time.monotonic() + 120
+        while len(server._subs) < 2 and proc.poll() is None:
+            check(time.monotonic() < deadline, "the CLI never subscribed")
+            time.sleep(0.05)
+        if proc.poll() is not None:
+            raise AssertionError(f"cli online exited early:\n"
+                                 f"{proc.communicate()[1][-3000:]}")
+        t_pub = time.perf_counter()
+        publish_to_rosbridge(ds, cfg, hz=10.0, speedup=50.0,
+                             host=server.host, port=server.port)
+        publish_s = time.perf_counter() - t_pub
+        time.sleep(1.0)
+        lib = sys.modules["roslibpy"]
+        client = lib.Ros(host=server.host, port=server.port)
+        client.run()
+        lib.Service(client, "/icm_slam/iterative_flag",
+                    "std_srvs/SetBool").call({"data": True}, timeout=10)
+        client.terminate()
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        server.stop()
+        sys.modules.pop("roslibpy", None)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"cli online exited {proc.returncode}:\n{stderr[-3000:]}")
+    sync = [json.loads(line)["sync"] for line in stdout.splitlines()
+            if line.startswith('{"sync"')]
+    check(len(sync) == 1 and sync[0]["dropped"] == 0,
+          f"synchronizer stats {sync}")
+    with np.load(out) as z:
+        x, x_init, pos = z["x"], z["x_init"], z["map_pos"]
+    n = x.shape[0]
+    check(n >= T - 10 and np.isfinite(x).all() and np.isfinite(pos).all(),
+          f"cli online: {n} frames of {T}, finite {np.isfinite(x).all()}")
+    t0 = time.perf_counter()
+    ref = api.run_online(stream_dataset(as_transported(
+        ds, n, cfg.rango_laser_max)), cfg, "cuda")
+    ref_s = time.perf_counter() - t0
+    check(pos.shape[0] == ref.map_pos.shape[0],
+          f"cli online census {pos.shape[0]} != run_online's "
+          f"{ref.map_pos.shape[0]}")
+    e = float(np.abs(x_init - ref.x_init).max())
+    check(e <= 1e-3, f"cli online x_init differs from run_online's by {e}")
+    emit(phase="online_cli", frames_published=T, frames_captured=n,
+         sync=sync[0], census=pos.shape[0], census_run_online=ref.map_pos.
+         shape[0], x_init_max_abs_diff=e,
+         x_max_abs_diff=float(np.abs(x - ref.x).max()),
+         publish_s=publish_s, cli_process_s=cli_s, run_online_s=ref_s,
+         card=smi)
+
+
 PARENT_ROOT = os.path.join(HERE, "build", "parent")
 
 
@@ -1436,7 +1994,22 @@ LAUNCHED_BY = {
                              "the small world's capped sweeps, N=3 "
                              "(phase 14)"),
     ("k2", (1, 16, 256)): ("hooks_causal",
-                           "the small world's causal init (phase 14)")}
+                           "the small world's causal init (phase 14)"),
+    ("k1", (2, 1833, 96, 128)): ("fleet_w2",
+                                 "the fleet curve's W=2 run, N=30 (phase 18)"),
+    ("k1", (4, 1833, 104, 128)): ("fleet_w4",
+                                  "the fleet curve's W=4 run, N=30 "
+                                  "(phase 18)"),
+    ("k1", (8, 1833, 152, 128)): ("fleet_w8",
+                                  "the fleet curve's W=8 run, N=30 "
+                                  "(phase 18)"),
+    ("k2", (4, 1833, 104, 1024)): ("fleet_uncapped",
+                                   "the uncapped fleet of four, N=3 "
+                                   "(phase 18)"),
+    ("k1", (3, 240, 48, 128)): ("fleet_small",
+                                "the small capped fleet, N=3 (phase 18)"),
+    ("k2", (3, 300, 136, 256)): ("fleet_small",
+                                 "the small uncapped fleet, N=4 (phase 18)")}
 
 
 def check_shapes_covered(launches):
@@ -1518,14 +2091,18 @@ def main():
         t = time.perf_counter()
         out = fn(*args)
         walls[name] = time.perf_counter() - t
+        print(f"chip_smoke: {name} {walls[name]:.1f} s", file=sys.stderr,
+              flush=True)
         return out
 
     def kernel_timing(nacts):
         emit(phase="launch_floor", **launch_floor(),
              note="K2 on one point, a table of one column, nact=0", card=smi)
         rows = kernel_table(nacts)
-        emit(phase="kernel_table", rows=rows, nact_as_run=nacts, card=smi)
-        emit(phase="k2_variants_timed", rows=k2_variants_timed(nacts["k2"]),
+        emit(phase="kernel_table", rows=rows, nact_as_run={
+            k if isinstance(k, str) else f"{k[0]} {list(k[1])}": v
+            for k, v in nacts.items()}, card=smi)
+        emit(phase="k2_variants_timed", rows=k2_variants_timed(nacts),
              card=smi)
         phase_old_vs_new(nacts, smi)
         return rows
@@ -1535,7 +2112,8 @@ def main():
     g = np.load(GOLDEN)
     launches, nacts = timed("main_uncapped", phase_main, g, smi)
     timed("small", phase_small, g)
-    for kind, counts in timed("profile", phase_profile, smi).items():
+    counts7, one_world = timed("profile", phase_profile, smi)
+    for kind, counts in counts7.items():
         nacts[kind] += counts
     ge = np.load(GOLDEN_ENGINES)
     n8, seq_res = timed("sequential", phase_sequential, ge, smi)
@@ -1554,6 +2132,21 @@ def main():
     launches.update(sequential=n8, nonquirk=n9, entry_points=n11,
                     hooks_batched=n13, hooks_causal=n14, ba=n15,
                     windowed_ba=n16)
+    t18 = time.perf_counter()
+    fk = timed("fleet_kernels", phase_fleet_kernels)
+    gf = np.load(GOLDEN_FLEET)
+    n18b, nacts18b = timed("fleet_small", phase_fleet_small, gf)
+    n18c, nacts18c, curve = timed("fleet_curve", phase_fleet_curve, gf, smi)
+    timed("fleet_profile", phase_fleet_profile, curve, one_world, smi)
+    n18e, nacts18e = timed("fleet_uncapped", phase_fleet_uncapped, smi)
+    launches.update(fleet_small=n18b, fleet_uncapped=n18e, **n18c)
+    # a fleet shape's table rows: the width, and the fewest and the most
+    # live columns its worlds left (the one-world shape keeps its counts)
+    for key, counts in {**nacts18b, **nacts18c, **nacts18e}.items():
+        if len(key[1]) == 4:
+            nacts[key] = sorted({min(counts), max(counts)})
+    emit(phase="fleet_wall_seconds", seconds=time.perf_counter() - t18)
+    timed("online", phase_online, smi)
     check_shapes_covered(launches)
     emit(phase="launches_by_shape", **{
         run: {f"{kind} {list(shape)}": c
@@ -1564,7 +2157,9 @@ def main():
          since_build=time.perf_counter() - t0)
     launches["all"] = {k: sum(n[k] for n in launches.values())
                        for k in ("k1", "k2")}
-    k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"],
+                            fk["k2"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], fk["k1"])
 
     print(json.dumps({"kernels": kernels_line(
         launches, {"k1": k1, "k2": k2}, rows)}), flush=True)

@@ -6,6 +6,8 @@ Port of ``icm_slam_tpu.api``:
                   Dataset or a dataset name/path, with optional
                   checkpoint/resume and JSON-lines metrics.
 ``run_online``  — consume a frame stream causally, then refine offline.
+``run_batched`` — fleet mode, re-exported from ``solver.icm``: W same-shape
+                  worlds through the batched engine at once.
 
 Both take reference-format YAML configs (``ICMConfig.from_yaml``).  The
 live plot of the JAX package is not ported (it needs matplotlib).
@@ -24,6 +26,7 @@ from icm_slam_tpu_torch.core.energy import weights
 from icm_slam_tpu_torch.data.datasets import Dataset, load
 from icm_slam_tpu_torch.mapping.landmark_map import MapState
 from icm_slam_tpu_torch.solver import icm
+from icm_slam_tpu_torch.solver.icm import run_batched  # noqa: F401
 from icm_slam_tpu_torch.utils import checkpoint as ckpt
 from icm_slam_tpu_torch.utils.metrics import JsonlLogger, ate
 

@@ -2,14 +2,19 @@
 
     python -m icm_slam_tpu_torch run --dataset synthetic --config <yaml> [...]
     python -m icm_slam_tpu_torch replay --dataset synthetic --hz 10 [...]
+    python -m icm_slam_tpu_torch online --host H --port 9090 [...]
 
 ``run`` is the offline pipeline (reference entry point C / __main__);
 ``replay`` feeds a dataset's frames through the online engine (reference
-entry points A+D).  ``--device`` picks the device (default ``cuda``; a
-missing GPU is an error, never a silent fallback to the CPU).  The flags
-are those of ``python -m icm_slam_tpu``, except the TPU knobs
-(``--pallas``, ``--pallas-fused``) and plotting (``--plot``,
-``--plot-live``), which the port does not have.  ``run --loop-close``
+entry points A+D); ``online`` captures live frames from a rosbridge for
+``config.time`` seconds (or until the /icm_slam/iterative_flag SetBool
+service fires), then refines (the reference's example.py workflow; it
+needs ``roslibpy``, or a stand-in for it).  ``--device`` picks the device
+(default ``cuda``; a missing GPU is an error, never a silent fallback to
+the CPU; it replaces the JAX CLI's ``online --cpu``).  The flags are those
+of ``python -m icm_slam_tpu``, except the TPU knobs (``--pallas``,
+``--pallas-fused``) and plotting (``--plot``, ``--plot-live``), which the
+port does not have.  ``run --loop-close``
 detects loop closures in the refined trajectory and corrects it with the
 pose graph on the same device.
 """
@@ -94,6 +99,8 @@ def _build(args):
 
 
 def _save(args, res, ds, cfg):
+    """Write what the flags ask for; the summary line compares with the
+    dataset's odometry when there is a dataset (``online`` has none)."""
     import numpy as np
     if args.export_map:
         from icm_slam_tpu_torch.utils.export import save_map_pgm
@@ -107,11 +114,13 @@ def _save(args, res, ds, cfg):
                             changes=res.changes)
     if not args.quiet:
         from icm_slam_tpu_torch.utils.metrics import ate
-        print(json.dumps({
+        summary = {
             "frames": int(res.x.shape[0]),
             "landmarks": int(res.map_pos.shape[0]),
-            "timings": {k: round(v, 4) for k, v in res.timings.items()},
-            "ate_vs_odom": ate(res.x, ds.odom)}))
+            "timings": {k: round(v, 4) for k, v in res.timings.items()}}
+        if ds is not None:
+            summary["ate_vs_odom"] = ate(res.x, ds.odom)
+        print(json.dumps(summary))
 
 
 def cmd_run(args):
@@ -142,6 +151,29 @@ def cmd_replay(args):
     _save(args, res, ds, cfg)
 
 
+def cmd_online(args):
+    """The reference's live workflow (ICM_ROS.py:280-316 / example.py):
+    connect to a rosbridge, run the causal init over the incoming frames
+    for the capture window (``--duration``, else ``config.time``; the
+    SetBool service stops it earlier once the buffer drains), then refine
+    and write the outputs."""
+    cfg = _config(args)
+    from icm_slam_tpu_torch.api import run_online
+    from icm_slam_tpu_torch.runtime.ingest import RosBridgeSource
+
+    src = RosBridgeSource(cfg, host=args.host, port=args.port)
+    src.connect()
+    try:
+        dur = args.duration if args.duration is not None else cfg.time
+        res = run_online(src.frames(duration=dur), cfg, args.device,
+                         refine=not args.no_refine, verbose=not args.quiet)
+    finally:
+        src.disconnect()
+    if not args.quiet:
+        print(json.dumps({"sync": src.sync.stats}))
+    _save(args, res, None, cfg)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="icm_slam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -157,6 +189,35 @@ def main(argv=None):
                        help="replay rate (0 = as fast as possible)")
     p_rep.add_argument("--no-refine", action="store_true")
     p_rep.set_defaults(fn=cmd_replay)
+
+    p_on = sub.add_parser(
+        "online", help="live capture from a rosbridge, then refine "
+                       "(the reference's example.py workflow)")
+    p_on.add_argument("--host", default="localhost")
+    p_on.add_argument("--port", type=int, default=9090,
+                      help="rosbridge websocket port (reference default)")
+    p_on.add_argument("--duration", type=float, default=None,
+                      help="capture window seconds (default: config.time, "
+                           "275 s in the reference YAML); the SetBool "
+                           "service stops earlier, as in the reference")
+    p_on.add_argument("--no-refine", action="store_true",
+                      help="stop after the causal init (iteration 0)")
+    p_on.add_argument("--config", default=None,
+                      help="reference-format YAML")
+    p_on.add_argument("--iters", type=int, default=None, help="override N")
+    p_on.add_argument("--mode", default=None,
+                      choices=["sequential", "batched", "ba", "windowed_ba"])
+    p_on.add_argument("--profile",
+                      choices=["fast", "default", "turbo", "ultra", "max"],
+                      default=None)
+    p_on.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                      help="torch device (default cuda)")
+    p_on.add_argument("--out", default=None, help="write result .npz here")
+    p_on.add_argument("--quiet", action="store_true")
+    p_on.add_argument("--export-map", default=None, metavar="PGM")
+    p_on.add_argument("--export-tum", default=None, metavar="TXT")
+    p_on.set_defaults(fn=cmd_online, map_cap=None, checked_cap=False,
+                      jacobi=False)
 
     args = ap.parse_args(argv)
     args.fn(args)

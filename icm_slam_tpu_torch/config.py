@@ -4,8 +4,8 @@ Field names, defaults and semantics follow ``icm_slam_tpu.config.ICMConfig``
 (see there for the long notes on each knob), so the same YAML files and
 keyword arguments configure both packages.  The TPU-only knobs
 (``use_pallas_assoc``, ``use_pallas_fused_assoc``,
-``assoc_onehot_max_elems``) and the fields no ported code reads (the ROS
-topics, ``file``, ``dist_thr_obs``) are not fields here.  ``model`` takes
+``assoc_onehot_max_elems``) and the fields no ported code reads (``file``,
+``dist_thr_obs``) are not fields here.  ``model`` takes
 the port's ``core.energy.EnergyModel``, whose hooks are torch code.
 ``from_yaml`` ignores unknown keys, so the same YAML files
 load; it reads them with ``read_yaml``, a reader of the reference format
@@ -121,11 +121,19 @@ class ICMConfig:
     dist_thr: float = 1.0            # association / merge distance gate [m]
     rango_laser_max: float = 10.0    # lidar max range [m]
     radio: float = 0.137             # tree trunk radius compensation [m]
+    time: float = 275.0              # online capture window [s] (the CLI's
+                                     # ``online`` without --duration)
 
     # --- sensor geometry ---
     n_beams: int = 181               # beams per scan (the online engine's)
     beam0_deg: float = 0.0
     beam_step_deg: float = 1.0
+
+    # --- ROS topics (the CLI's ``online`` over rosbridge) ---
+    topic_laser: str = "/pioneer2dx/laser/scan_Lidar_horizontal"
+    topic_laser_msg: str = "sensor_msgs/LaserScan"
+    topic_odometry: str = "/pioneer2dx/ground_truth/odom"
+    topic_odometry_msg: str = "nav_msgs/Odometry"
 
     # --- engine knobs ---
     sweep_mode: str = "batched"      # sequential | batched | ba | windowed_ba

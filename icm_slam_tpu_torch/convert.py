@@ -67,6 +67,27 @@ def sweep_data_to_numpy(data: SweepData):
     return tuple(a.cpu().numpy() for a in data)
 
 
+def stack_sweep_data(datas, device) -> SweepData:
+    """W same-shape SweepData (JAX's or NumPy) as one with a leading world
+    axis, the form ``solver.sweeps`` runs a fleet in."""
+    return SweepData(*(torch.stack(f) for f in zip(
+        *(sweep_data_to_torch(d, device) for d in datas))))
+
+
+def stack_maps(states, device) -> MapState:
+    """W (pos, counts, nact) map states as one MapState with a leading
+    world axis."""
+    return MapState(*(torch.stack(f) for f in zip(
+        *(map_to_torch(m, device) for m in states))))
+
+
+def unstack_map(state: MapState) -> list:
+    """A fleet's MapState as W (pos, counts, nact) NumPy tuples."""
+    pos, counts, nact = (a.cpu().numpy() for a in state)
+    return [(pos[w], counts[w], np.int32(nact[w]))
+            for w in range(pos.shape[0])]
+
+
 def poses_to_torch(x, device) -> torch.Tensor:
     return _t(x, device, torch.float32)
 

@@ -44,6 +44,13 @@
 //   thread where K is a multiple of 4.
 // nact is read from device memory (a 0-d tensor), so the caller never
 // syncs to pass it; the gate thr2 is a plain float.
+//
+// Worlds.  A fleet of W same-shape worlds (solver/icm.py::run_batched) is
+// one launch: the grid is (T, W), block (t, w) runs frame t of world w
+// against world w's columns (`map_ws` floats apart) and world w's live
+// count (nact[w]).  No block straddles two worlds, so each world's slice
+// of the result is bitwise what a launch on that world alone gives.  A
+// single world is W = 1.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,7 +71,8 @@ __global__ void assoc_sums_kernel(const float* __restrict__ pts,
                                   const float* __restrict__ map,
                                   const unsigned char* __restrict__ mask,
                                   const int* __restrict__ nact_ptr,
-                                  int B, int K, float thr2,
+                                  int T, int B, int K, long long map_ws,
+                                  float thr2,
                                   int* __restrict__ lab,
                                   float* __restrict__ d2min,
                                   float* __restrict__ sums) {
@@ -76,10 +84,14 @@ __global__ void assoc_sums_kernel(const float* __restrict__ pts,
   float* by = bx + B;
   int* bl = reinterpret_cast<int*>(by + B);
 
-  const int t = blockIdx.x;
+  // t counts frames over all worlds: the frame's beams, labels and sums
+  // lie at t; its world's columns and live count at blockIdx.y
+  const size_t t = static_cast<size_t>(blockIdx.y) * T + blockIdx.x;
+  map += static_cast<size_t>(blockIdx.y) * map_ws;
+  nact_ptr += blockIdx.y;
   // the frame's beams and mask are on their way before nact is waited for
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const size_t i = static_cast<size_t>(t) * B + b;
+    const size_t i = t * B + b;
     const float2 p = reinterpret_cast<const float2*>(pts)[i];
     bx[b] = p.x;
     by[b] = p.y;
@@ -104,7 +116,7 @@ __global__ void assoc_sums_kernel(const float* __restrict__ pts,
                               arg);
     icm::combine_lanes<kLanes>(best, arg);
     if (valid && s == 0) {
-      const size_t i = static_cast<size_t>(t) * B + b;
+      const size_t i = t * B + b;
       lab[i] = arg;
       d2min[i] = best;
       bl[b] = (bl[b] == 0 && best <= thr2) ? arg : -1;
@@ -135,7 +147,7 @@ __global__ void assoc_sums_kernel(const float* __restrict__ pts,
   }
   __syncthreads();
 
-  float* out = sums + static_cast<size_t>(t) * 3 * K;
+  float* out = sums + t * 3 * K;
   if (K % 4 == 0) {
     float4* out4 = reinterpret_cast<float4*>(out);
     for (int k = threadIdx.x; k < 3 * K / 4; k += blockDim.x)
@@ -148,21 +160,25 @@ __global__ void assoc_sums_kernel(const float* __restrict__ pts,
 }  // namespace
 
 // `threads` and `shmem` come from ops/assoc_sums.py::launch_plan; a plan
-// whose shared memory does not hold the layout above is refused with
-// cudaErrorInvalidValue before anything is launched.
+// whose shared memory does not hold the layout above, or a world stride
+// that would misalign the float2 columns, is refused with
+// cudaErrorInvalidValue before anything is launched.  pts (W, T, B, 2),
+// mask (W, T, B), nact (W,), lab and d2min (W, T, B), sums (W, T, 3, K)
+// are contiguous; world w's K columns start at map + w * map_ws.
 extern "C" int icm_assoc_sums(const float* pts, const float* map,
                               const unsigned char* mask, const int* nact,
-                              int T, int B, int K, float thr2, int threads,
-                              int shmem, int* lab, float* d2min, float* sums,
+                              int W, int T, int B, int K, long long map_ws,
+                              float thr2, int threads, int shmem, int* lab,
+                              float* d2min, float* sums,
                               cudaStream_t stream) {
-  if (T == 0) return 0;
+  if (T == 0 || W == 0) return 0;
   const size_t need = sums_bytes(K) + static_cast<size_t>(K) * 8
                       + static_cast<size_t>(B) * 12;
   if (threads < 32 || threads > 1024 || threads % 32 != 0 || shmem < 0 ||
-      static_cast<size_t>(shmem) < need || shmem > 48 * 1024)
+      static_cast<size_t>(shmem) < need || shmem > 48 * 1024 || W < 0 ||
+      W > 65535 || map_ws < 0 || map_ws % 2 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  assoc_sums_kernel<<<T, threads, shmem, stream>>>(pts, map, mask, nact, B,
-                                                   K, thr2, lab, d2min,
-                                                   sums);
+  assoc_sums_kernel<<<dim3(T, W), threads, shmem, stream>>>(
+      pts, map, mask, nact, T, B, K, map_ws, thr2, lab, d2min, sums);
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,6 +50,14 @@
 //   after the lookup, and so is a whole chunk of fewer than 128 columns,
 //   where the lookup would cost more than the groups save.
 //
+// Worlds.  A fleet of W same-shape worlds (solver/icm.py::run_batched) is
+// one launch: the grid is (blocks per world, W), and the blocks of row w
+// take world w's n_pts points against world w's columns (`map_ws` floats
+// apart) and live count (nact[w]).  No block straddles two worlds, the
+// plan is chosen from the points of one world, and each world's slice of
+// the result is bitwise what a launch on that world alone gives.  A single
+// world is W = 1.
+//
 // nact is read from device memory (a 0-d tensor), so the caller never
 // syncs to pass it.  A split kernel's lanes fetch the table's first S
 // columns while nact is on its way, and with nact <= S (the live counts a
@@ -69,15 +77,28 @@ constexpr int kGroup = 32;  // columns per group of the grouped kernel
 // third, so below ~130 columns the plain scan is the shorter.
 constexpr int kGroupedFrom = 128;
 
+// Row w = blockIdx.y of the grid takes world w: its points, outputs,
+// columns and live count.
+#define ICM_TO_WORLD()                                 \
+  do {                                                 \
+    const size_t w = blockIdx.y;                       \
+    pts += w * static_cast<size_t>(n_pts) * 2;         \
+    lab += w * static_cast<size_t>(n_pts);             \
+    dist += w * static_cast<size_t>(n_pts);            \
+    map += w * static_cast<size_t>(map_ws);            \
+    nact_ptr += w;                                     \
+  } while (0)
+
 template <int S>
 __global__ void nearest_landmark_split(const float* __restrict__ pts,
                                        const float* __restrict__ map,
                                        const int* __restrict__ nact_ptr,
-                                       int n_pts, int L, int chunk,
-                                       int* __restrict__ lab,
+                                       int n_pts, int L, long long map_ws,
+                                       int chunk, int* __restrict__ lab,
                                        float* __restrict__ dist) {
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
+  ICM_TO_WORLD();
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long i = tid / S;
@@ -114,11 +135,12 @@ __global__ void nearest_landmark_split(const float* __restrict__ pts,
 __global__ void nearest_landmark_grouped(const float* __restrict__ pts,
                                          const float* __restrict__ map,
                                          const int* __restrict__ nact_ptr,
-                                         int n_pts, int L, int chunk,
-                                         int* __restrict__ lab,
+                                         int n_pts, int L, long long map_ws,
+                                         int chunk, int* __restrict__ lab,
                                          float* __restrict__ dist) {
   extern __shared__ float4 smem4[];
   float2* sm = reinterpret_cast<float2*>(smem4);
+  ICM_TO_WORLD();
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float2 p = make_float2(0.0f, 0.0f);
@@ -180,25 +202,29 @@ __global__ void nearest_landmark_grouped(const float* __restrict__ pts,
 
 }  // namespace
 
-// The plan (lanes per point, blocks, threads per block, bytes of shared
-// memory) comes from ops/assoc.py::launch_plan; a plan this file has no
-// kernel for, or one that does not cover the points, is refused with
-// cudaErrorInvalidValue before anything is launched.
+// The plan (lanes per point, blocks per world, threads per block, bytes of
+// shared memory) comes from ops/assoc.py::launch_plan; a plan this file has
+// no kernel for, one that does not cover a world's points, or a world
+// stride that would misalign the float2 columns, is refused with
+// cudaErrorInvalidValue before anything is launched.  pts (W, n_pts, 2),
+// nact (W,), lab and dist (W, n_pts) are contiguous; world w's L columns
+// start at map + w * map_ws.
 extern "C" int icm_nearest_landmark(const float* pts, const float* map,
-                                    const int* nact, int n_pts, int L,
-                                    int lanes, int blocks, int threads,
-                                    int shmem, int* lab, float* dist,
-                                    cudaStream_t stream) {
-  if (n_pts == 0) return 0;
-  if (blocks <= 0 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
+                                    const int* nact, int W, int n_pts, int L,
+                                    long long map_ws, int lanes, int blocks,
+                                    int threads, int shmem, int* lab,
+                                    float* dist, cudaStream_t stream) {
+  if (n_pts == 0 || W == 0) return 0;
+  if (W < 0 || W > 65535 || map_ws < 0 || map_ws % 2 != 0 || blocks <= 0 ||
+      threads < 32 || threads > 1024 || threads % 32 != 0 ||
       shmem < kGroup * 8 || shmem % (kGroup * 8) != 0 || shmem > 48 * 1024 ||
       static_cast<long long>(blocks) * threads <
           static_cast<long long>(n_pts) * lanes)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = shmem / 8;
 #define ICM_LAUNCH(kernel)                                                  \
-  kernel<<<blocks, threads, shmem, stream>>>(pts, map, nact, n_pts, L,      \
-                                             chunk, lab, dist)
+  kernel<<<dim3(blocks, W), threads, shmem, stream>>>(                      \
+      pts, map, nact, n_pts, L, map_ws, chunk, lab, dist)
   if (lanes == 32) {
     ICM_LAUNCH(nearest_landmark_split<32>);
   } else if (lanes == 1) {

@@ -4,7 +4,10 @@ Port of ``icm_slam_tpu.mapping.landmark_map``: a fixed (L, 2) table, (L,)
 observation counts and a live-count scalar that stays on the device.
 JAX's drop-mode scatters (``.at[].set(mode="drop")``) become scatters into
 a table with one extra padding row that is sliced off afterwards, since
-torch raises on out-of-range indices.
+torch raises on out-of-range indices.  JAX's ``segment_sum`` becomes
+``add_rows``, which adds in a fixed order on the card too.  A fleet's
+maps are one MapState with a leading world axis W ((W, L, 2), (W, L),
+(W,)); ``filter_map`` takes both forms.
 """
 from __future__ import annotations
 
@@ -21,6 +24,23 @@ class MapState(NamedTuple):
     pos: torch.Tensor     # (L, 2) landmark positions (dead slots: zeros)
     counts: torch.Tensor  # (L,) observation counts
     nact: torch.Tensor    # () int32 live-landmark count
+    # a fleet's maps: the same with a leading world axis W
+
+
+def add_rows(out, idx, vals):
+    """``out[idx[i]] += vals[i]`` for every i, in place; returns ``out``.
+
+    Rows that share an index are summed in the order of i on every device,
+    so a run repeats bitwise and a fleet's world is bitwise the same world
+    alone.  On the card that is ``index_put_`` with ``accumulate``, which
+    sorts the indices (stably) and adds each row's values in turn;
+    ``index_add_`` there adds by float atomics in no fixed order.  On the
+    CPU it is ``index_add_``, which adds in turn; ``index_put_`` there
+    adds large float inputs by atomics across threads.
+    """
+    if out.is_cuda:
+        return out.index_put_((idx,), vals, accumulate=True)
+    return out.index_add_(0, idx, vals)
 
 
 def empty_map(L, dtype=torch.float32, device=None) -> MapState:
@@ -110,10 +130,10 @@ def scatter_update(state: MapState, pts, labels, n_new) -> MapState:
     dtype, dev = state.pos.dtype, state.pos.device
     idx = torch.clamp(labels, max=L).long()
     w = (labels < L).to(dtype)
-    sums = torch.zeros((L + 1, 2), dtype=dtype, device=dev).index_add_(
-        0, idx, pts * w[:, None])[:L]
-    cnt = torch.zeros((L + 1,), dtype=dtype, device=dev).index_add_(
-        0, idx, w)[:L]
+    sums = add_rows(torch.zeros((L + 1, 2), dtype=dtype, device=dev), idx,
+                    pts * w[:, None])[:L]
+    cnt = add_rows(torch.zeros((L + 1,), dtype=dtype, device=dev), idx,
+                   w)[:L]
     tot = state.counts + cnt
     new_pos = torch.where((cnt > 0)[:, None],
                           (sums + state.pos * state.counts[:, None])
@@ -167,60 +187,76 @@ def filter_map(state: MapState, cota, dist_thr, live_cap: int = 0
     count-weighted merge means.  ``live_cap`` > 0 runs the merge on the
     first K = live_cap compacted rows (exact when the kept count fits).
 
-    The data-dependent relabel loop runs on the host: one device-to-host
-    copy of (n, close, nn) per call — the one host sync of a refine sweep.
+    ``state`` is one map or a fleet's W maps (a leading world axis); each
+    world is filtered on its own, and its slice of a fleet's result is
+    bitwise the result of filtering it alone (on the CPU; on the card
+    the merge sums add in no fixed order).  The data-dependent relabel
+    loop runs on the host: one device-to-host copy of (n, close, nn) for
+    all worlds per call — the one host sync of a refine sweep — and, when
+    some world has a close pair, one copy of the W label vectors back.
     """
-    L = state.pos.shape[0]
+    if state.pos.dim() == 2:
+        out = filter_map(MapState(*(a[None] for a in state)), cota,
+                         dist_thr, live_cap)
+        return MapState(*(a[0] for a in out))
+    W, L = state.counts.shape
     K = live_cap if 0 < live_cap < L else L
     dev, dtype = state.pos.device, state.pos.dtype
     idx = torch.arange(L, device=dev)
-    keep = (idx < state.nact) & (state.counts >= cota)
-    rank = torch.cumsum(keep, dim=0) - 1
-    tgt = torch.where(keep, torch.clamp(rank, max=K), K)
-    pos = torch.zeros((K + 1, 2), dtype=dtype, device=dev)
-    pos[tgt] = state.pos
-    counts = torch.zeros((K + 1,), dtype=dtype, device=dev)
-    counts[tgt] = state.counts
-    pos, counts = pos[:K], counts[:K]
-    n = keep.sum().to(torch.int32)
+    keep = (idx < state.nact[:, None]) & (state.counts >= cota)   # (W, L)
+    rank = torch.cumsum(keep, dim=1) - 1
+    # each world's rows K + 1 apart in one flat table: one index a row
+    wid = torch.arange(W, device=dev)[:, None] * (K + 1)
+    tgt = (torch.where(keep, torch.clamp(rank, max=K), K) + wid).reshape(-1)
+    pos = torch.zeros((W * (K + 1), 2), dtype=dtype, device=dev)
+    pos[tgt] = state.pos.reshape(-1, 2)
+    counts = torch.zeros((W * (K + 1),), dtype=dtype, device=dev)
+    counts[tgt] = state.counts.reshape(-1)
+    pos = pos.view(W, K + 1, 2)[:, :K]
+    counts = counts.view(W, K + 1)[:, :K]
+    n = keep.sum(dim=1).to(torch.int32)                       # (W,)
     idx_k = torch.arange(K, device=dev)
-    live_k = idx_k < n
+    live_k = idx_k < n[:, None]                               # (W, K)
 
-    diff = pos[:, None, :] - pos[None, :, :]
-    d = torch.sqrt((diff * diff).sum(dim=-1))
-    pair = live_k[:, None] & live_k[None, :]
-    dmax = torch.where(pair, d, float("-inf")).max()
+    diff = pos[:, :, None, :] - pos[:, None, :, :]
+    d = torch.sqrt((diff * diff).sum(dim=-1))                 # (W, K, K)
+    pair = live_k[:, :, None] & live_k[:, None, :]
+    dmax = torch.where(pair, d, float("-inf")).amax(dim=(1, 2))
+    dmax = dmax[:, None, None]
     d = torch.where(d < 1e-9, dmax, d)
     eye = torch.eye(K, dtype=torch.bool, device=dev)
     d = torch.where(eye, dmax, d)
     d = torch.where(pair, d, float("inf"))
-    nnd, nn = d.min(dim=1)
+    nnd, nn = d.min(dim=2)
     close = live_k & (nnd < dist_thr)
 
-    host = torch.cat([n[None].to(torch.int64), close.to(torch.int64),
-                      nn.to(torch.int64)]).cpu().numpy()
-    n_h, close_h, nn_h = int(host[0]), host[1:K + 1], host[K + 1:]
-    if close_h.any():
-        lab = torch.from_numpy(_relabel_walk(nn_h, close_h, n_h, K)).to(dev)
+    host = torch.cat([n[:, None].to(torch.int64), close.to(torch.int64),
+                      nn.to(torch.int64)], dim=1).cpu().numpy()
+    if host[:, 1:K + 1].any():
+        lab = torch.from_numpy(np.stack([
+            _relabel_walk(h[K + 1:], h[1:K + 1], int(h[0]), K)
+            for h in host])).to(dev)
     else:
-        lab = idx_k.to(torch.int32)
+        lab = idx_k.to(torch.int32).expand(W, K)
     lab = compact_labels(lab, live_k, K)
-    n_final = torch.where(n > 0, torch.where(live_k, lab, -1).max() + 1,
-                          0).to(torch.int32)
+    n_final = torch.where(n > 0, torch.where(live_k, lab, -1).amax(dim=1)
+                          + 1, 0).to(torch.int32)
 
     w = torch.where(live_k, counts, 0.0)
-    labl = lab.long()
-    sums = torch.zeros((K + 1, 2), dtype=dtype, device=dev).index_add_(
-        0, labl, pos * w[:, None])[:K]
-    cnts = torch.zeros((K + 1,), dtype=dtype, device=dev).index_add_(
-        0, labl, w)[:K]
-    merged = torch.where((cnts > 0)[:, None],
-                         sums / torch.clamp(cnts, min=1.0)[:, None], 0.0)
+    flat = (lab.long() + wid).reshape(-1)
+    sums = add_rows(torch.zeros((W * (K + 1), 2), dtype=dtype, device=dev),
+                    flat, (pos * w[..., None]).reshape(-1, 2)).view(
+                        W, K + 1, 2)
+    cnts = add_rows(torch.zeros((W * (K + 1),), dtype=dtype, device=dev),
+                    flat, w.reshape(-1)).view(W, K + 1)
+    sums, cnts = sums[:, :K], cnts[:, :K]
+    merged = torch.where((cnts > 0)[..., None],
+                         sums / torch.clamp(cnts, min=1.0)[..., None], 0.0)
     if K < L:
-        merged = torch.cat([merged, torch.zeros((L - K, 2), dtype=dtype,
-                                                device=dev)])
-        cnts = torch.cat([cnts, torch.zeros((L - K,), dtype=dtype,
-                                            device=dev)])
+        merged = torch.cat([merged, torch.zeros((W, L - K, 2), dtype=dtype,
+                                                device=dev)], dim=1)
+        cnts = torch.cat([cnts, torch.zeros((W, L - K), dtype=dtype,
+                                            device=dev)], dim=1)
     return MapState(merged, cnts, n_final)
 
 
@@ -231,10 +267,10 @@ def seed_from_clusters(L, pts, labels, dtype=torch.float32, device=None
     labels = torch.as_tensor(np.asarray(labels), dtype=torch.int64,
                              device=device)
     pts = torch.as_tensor(np.asarray(pts), dtype=dtype, device=device)
-    sums = torch.zeros((L, 2), dtype=dtype, device=device).index_add_(
-        0, labels, pts)
-    cnt = torch.zeros((L,), dtype=dtype, device=device).index_add_(
-        0, labels, torch.ones((pts.shape[0],), dtype=dtype, device=device))
+    sums = add_rows(torch.zeros((L, 2), dtype=dtype, device=device), labels,
+                    pts)
+    cnt = add_rows(torch.zeros((L,), dtype=dtype, device=device), labels,
+                   torch.ones((pts.shape[0],), dtype=dtype, device=device))
     pos = torch.where((cnt > 0)[:, None],
                       sums / torch.clamp(cnt, min=1.0)[:, None], 0.0)
     return MapState(pos, cnt, (labels.max() + 1).to(torch.int32))

@@ -29,15 +29,17 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures of the exported launchers; each returns a cudaError_t
 _SIGNATURES = {
-    # pts, map, mask, nact, T, B, K, thr2, threads, shmem, lab, d2min, sums,
-    # stream
-    "icm_assoc_sums": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
-                       _P),
-    # pts, map, nact, n_pts, L, lanes, blocks, threads, shmem, lab, dist,
-    # stream
-    "icm_nearest_landmark": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # pts, map, mask, nact, W, T, B, K, map_ws, thr2, threads, shmem, lab,
+    # d2min, sums, stream
+    "icm_assoc_sums": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _F, _I, _I, _P,
+                       _P, _P, _P),
+    # pts, map, nact, W, n_pts, L, map_ws, lanes, blocks, threads, shmem,
+    # lab, dist, stream
+    "icm_nearest_landmark": (_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I,
+                             _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -161,9 +163,23 @@ def current_stream(device: torch.device) -> int:
 
 
 def as_count(nact, device: torch.device):
-    """``nact`` as a 0-d int32 tensor on ``device``; a tensor that already
-    is one comes back as it is."""
+    """``nact`` as an int32 tensor on ``device`` (0-d, or (W,) for a fleet);
+    a tensor that already is one comes back as it is."""
     if isinstance(nact, torch.Tensor) and nact.dtype == torch.int32 \
             and nact.device == device:
         return nact
     return torch.as_tensor(nact, dtype=torch.int32, device=device)
+
+
+def world_stride(map_pos) -> int:
+    """Floats between two worlds' tables in a (W, K, 2) ``map_pos`` whose
+    rows are contiguous (a column slice ``pos[:, :K]`` of a wider table is
+    one); raises on any other layout, or on a stride that would start a
+    world's table off the 8-byte boundary its float2 rows need."""
+    if map_pos.stride(-1) != 1 or (map_pos.shape[-2] > 1
+                                   and map_pos.stride(-2) != 2):
+        raise ValueError("map_pos rows must be contiguous (K, 2) pairs")
+    ws = map_pos.stride(0) if map_pos.shape[0] > 1 else 0
+    if ws % 2:
+        raise ValueError("map_pos worlds must start on 8-byte boundaries")
+    return ws

@@ -12,6 +12,10 @@ Which of the kernel's variants a call takes is decided here, by
 ``launch_plan``, from the number of points and the table's width alone, so
 the CPU tests reach the choice; ``lane_min`` is the kernels' rule for
 combining the lanes that share a point, in plain PyTorch.
+
+Worlds: every form also takes a leading world axis W (``pts`` (W, T, B,
+2), ``map_pos`` (W, L, 2), ``nact`` (W,)), each world against its own
+table and live count, in one launch; the (T, B, 2) form is W = 1.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 from icm_slam_tpu_torch.ops import _build
 
 # kernel launches by nearest_landmark (the plain version does not count),
-# in all and by the call's shape (T, B, L)
+# in all and by the call's shape: (T, B, L) for one world, (W, T, B, L)
+# for a fleet of W > 1
 LAUNCHES = 0
 LAUNCH_SHAPES = collections.Counter()
 
@@ -107,77 +112,99 @@ def lane_min(d2, lanes: int):
 
 
 def live_d2(pts, map_pos, nact):
-    """Squared distances (T, B, L) of every point to every column, +inf
-    on the columns at or beyond ``nact``; the products and the sum are
-    rounded one by one, as the kernels round them."""
-    L = map_pos.shape[0]
-    live = torch.arange(L, device=pts.device) < nact
-    dx = pts[..., 0:1] - map_pos[:, 0]                        # (T, B, L)
-    dy = pts[..., 1:2] - map_pos[:, 1]
+    """Squared distances (..., T, B, L) of every point to every column,
+    +inf on the columns at or beyond ``nact``; the products and the sum
+    are rounded one by one, as the kernels round them.  pts (T, B, 2),
+    map_pos (L, 2), nact 0-d; or with a leading world axis W on all three
+    (nact (W,)), each world against its own table."""
+    L = map_pos.shape[-2]
+    nact = torch.as_tensor(nact, device=pts.device)
+    live = torch.arange(L, device=pts.device) \
+        < nact.reshape(nact.shape + (1, 1, 1))
+    mx = map_pos[..., None, None, :, 0]                       # (..., 1, 1, L)
+    my = map_pos[..., None, None, :, 1]
+    dx = pts[..., 0:1] - mx                                   # (..., T, B, L)
+    dy = pts[..., 1:2] - my
     return torch.where(live, dx * dx + dy * dy, float("inf"))
 
 
 def nearest_landmark_plain(pts, map_pos, nact, lanes: int = 1):
     """pts (T, B, 2) f32; map_pos (L, 2) f32; nact: live count (int or
-    0-d tensor); lanes: split the columns as the kernel's variant of that
-    many lanes does (the result is the same for every value).  Returns
-    (labels (T, B) int32, min_dist (T, B) f32)."""
+    0-d tensor) — or the same with a leading world axis W (nact (W,));
+    lanes: split the columns as the kernel's variant of that many lanes
+    does (the result is the same for every value).  Returns (labels
+    (..., T, B) int32, min_dist (..., T, B) f32)."""
     best, lab = lane_min(live_d2(pts, map_pos, nact), lanes)
     return lab.to(torch.int32), torch.sqrt(torch.clamp(best, min=0.0))
 
 
 def _check(pts, map_pos, nact):
+    """Check a call in either form; returns it in the world form: pts
+    (W, T, B, 2) and nact (W,) contiguous, map_pos (W, L, 2) with
+    contiguous rows (a column slice of a wider table is taken where it
+    lies)."""
+    if pts.dim() == 3:
+        if nact.dim() != 0 or map_pos.dim() != 2:
+            raise ValueError("one world: map_pos must be (L, 2) and nact a "
+                             "0-d int32 tensor")
+        pts, map_pos, nact = pts[None], map_pos[None], nact.reshape(1)
     dev = pts.device
-    if pts.dim() != 3 or pts.shape[2] != 2 or pts.dtype != torch.float32:
-        raise ValueError(f"pts must be (T, B, 2) float32, got "
-                         f"{tuple(pts.shape)} {pts.dtype}")
-    if map_pos.dim() != 2 or map_pos.shape[1] != 2 \
+    if pts.dim() != 4 or pts.shape[3] != 2 or pts.dtype != torch.float32:
+        raise ValueError(f"pts must be (T, B, 2) or (W, T, B, 2) float32, "
+                         f"got {tuple(pts.shape)} {pts.dtype}")
+    W = pts.shape[0]
+    if map_pos.dim() != 3 or map_pos.shape[0] != W or map_pos.shape[2] != 2 \
             or map_pos.dtype != torch.float32:
-        raise ValueError(f"map_pos must be (L, 2) float32, got "
-                         f"{tuple(map_pos.shape)} {map_pos.dtype}")
-    if nact.shape != () or nact.dtype != torch.int32:
-        raise ValueError("nact must be a 0-d int32 tensor")
+        raise ValueError(f"map_pos must be (L, 2) or ({W}, L, 2) float32, "
+                         f"got {tuple(map_pos.shape)} {map_pos.dtype}")
+    if tuple(nact.shape) != (W,) or nact.dtype != torch.int32:
+        raise ValueError("nact must be a 0-d int32 tensor, or (W,) with a "
+                         "world axis")
     for name, a in (("pts", pts), ("map_pos", map_pos), ("nact", nact)):
         if a.device != dev:
             raise ValueError(f"{name} is on {a.device}, pts on {dev}")
-        if not a.is_contiguous():
+        if name != "map_pos" and not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    _build.world_stride(map_pos)
     _build.check_pairs_aligned(pts=pts, map_pos=map_pos)
-    if pts.shape[0] * pts.shape[1] >= 2 ** 31:
+    if pts.shape[1] * pts.shape[2] >= 2 ** 31 or W > 65535:
         raise ValueError("too many points for one launch")
+    return pts, map_pos, nact
 
 
 def launch(pts, map_pos, nact, plan: LaunchPlan):
-    """Launch K2 on checked CUDA tensors with ``plan``; raises when the
-    card refuses it.  ``nearest_landmark`` is the caller; the checks on
-    the card call this with every variant at one shape."""
+    """Launch K2 on CUDA tensors with ``plan`` (blocks per world); raises
+    when the card refuses it.  ``nearest_landmark`` is the caller; the
+    checks on the card call this with every variant at one shape."""
     global LAUNCHES
-    T, B, _ = pts.shape
-    lab = torch.empty((T, B), dtype=torch.int32, device=pts.device)
-    dist = torch.empty((T, B), dtype=torch.float32, device=pts.device)
-    if T * B == 0:
-        return lab, dist
-    fn = _build.library().icm_nearest_landmark
-    with _build.on_device(pts.device):
-        err = fn(pts.data_ptr(), map_pos.data_ptr(), nact.data_ptr(), T * B,
-                 map_pos.shape[0], plan.lanes, plan.blocks, plan.threads,
-                 plan.shmem, lab.data_ptr(), dist.data_ptr(),
-                 _build.current_stream(pts.device))
-    _build.check(err, "icm_nearest_landmark")
-    LAUNCHES += 1
-    LAUNCH_SHAPES[(T, B, map_pos.shape[0])] += 1
-    return lab, dist
+    one = pts.dim() == 3
+    pts, map_pos, nact = _check(pts, map_pos, nact)
+    W, T, B, _ = pts.shape
+    L = map_pos.shape[1]
+    lab = torch.empty((W, T, B), dtype=torch.int32, device=pts.device)
+    dist = torch.empty((W, T, B), dtype=torch.float32, device=pts.device)
+    if W * T * B > 0:
+        fn = _build.library().icm_nearest_landmark
+        with _build.on_device(pts.device):
+            err = fn(pts.data_ptr(), map_pos.data_ptr(), nact.data_ptr(), W,
+                     T * B, L, _build.world_stride(map_pos), plan.lanes,
+                     plan.blocks, plan.threads, plan.shmem, lab.data_ptr(),
+                     dist.data_ptr(), _build.current_stream(pts.device))
+        _build.check(err, "icm_nearest_landmark")
+        LAUNCHES += 1
+        LAUNCH_SHAPES[(T, B, L) if W == 1 else (W, T, B, L)] += 1
+    return (lab[0], dist[0]) if one else (lab, dist)
 
 
 def nearest_landmark(pts, map_pos, nact):
     """K2 on CUDA tensors, the plain version on CPU tensors (same contract
-    as ``nearest_landmark_plain``)."""
+    as ``nearest_landmark_plain``).  A fleet of W worlds is one launch."""
     if pts.is_cpu:
         return nearest_landmark_plain(pts, map_pos, nact)
     if not pts.is_cuda:
         raise ValueError(f"nearest_landmark: unsupported device "
                          f"{pts.device}")
     nact = _build.as_count(nact, pts.device)
-    _check(pts, map_pos, nact)
     return launch(pts, map_pos, nact,
-                  launch_plan(pts.shape[0] * pts.shape[1], map_pos.shape[0]))
+                  launch_plan(pts.shape[-3] * pts.shape[-2],
+                              map_pos.shape[-2]))

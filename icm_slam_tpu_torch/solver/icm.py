@@ -8,6 +8,10 @@ of ``models/``: ``ba`` and ``windowed_ba``), each followed by the map
 filter.  The per-sweep witnesses and map changes stay on the device
 during a segment of sweeps and are checked at its end, before any
 observer sees the segment's state, as the fused JAX loop does.
+
+``run_batched`` is fleet mode: W same-shape worlds through the batched
+engine at once, on a leading world axis (the JAX package's ``vmap``), so
+that W worlds cost the kernel launches of one.
 """
 from __future__ import annotations
 
@@ -126,10 +130,11 @@ def check_table_overflow(raw_nact, L: int, where: str = "sweep") -> None:
 
 
 def kept_count(state: MapState, cota) -> torch.Tensor:
-    """Landmarks that survive the cota prune (pre-merge), on the device."""
-    L = state.pos.shape[0]
-    live = torch.arange(L, device=state.pos.device) < state.nact
-    return (live & (state.counts >= cota)).sum().to(torch.int32)
+    """Landmarks that survive the cota prune (pre-merge), on the device;
+    (W,) for a fleet's maps."""
+    L = state.pos.shape[-2]
+    live = torch.arange(L, device=state.pos.device) < state.nact[..., None]
+    return (live & (state.counts >= cota)).sum(dim=-1).to(torch.int32)
 
 
 def check_witness(witness, config: ICMConfig, where: str = "sweep",
@@ -215,7 +220,8 @@ def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
     """One refinement sweep + map filtering.
 
     Returns (filtered map, poses, witness): witness = int32 [raw pre-filter
-    live count, kept-after-prune count], validated by check_witness.
+    live count, kept-after-prune count], validated by check_witness; a
+    fleet's batched sweep (world axis W) returns (W, 2) witnesses.
     """
     if config.sweep_mode == "sequential":
         state, x = refine_sweep_sequential(data, old_map, x, config, w)
@@ -233,7 +239,7 @@ def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
     filtered = filter_map(state, config.cota, config.dist_thr,
                           live_cap=config.map_run_cap)
     witness = torch.stack([state.nact.to(torch.int32),
-                           kept_count(state, config.cota)])
+                           kept_count(state, config.cota)], dim=-1)
     return filtered, x, witness
 
 
@@ -244,7 +250,7 @@ def _compaction_cap(data: SweepData, config: ICMConfig) -> int:
     if config.sweep_mode == "sequential":
         return 0
     cap = config.obs_cap or 0
-    return cap if cap and cap < data.dist.shape[1] else 0
+    return cap if cap and cap < data.dist.shape[-1] else 0
 
 
 def hoist_compaction(data: SweepData, config: ICMConfig) -> SweepData:
@@ -293,23 +299,26 @@ def refine_loop(data: SweepData, cur_map: MapState, x, config: ICMConfig, w,
 
 def map_change(new_map: MapState, old_map: MapState, live_cap: int = 0):
     """min/max/mean nearest-landmark displacement (ICM_SLAM.py:490-495),
-    zeros when either map is empty; on the first ``live_cap`` rows."""
-    L = new_map.pos.shape[0]
+    zeros when either map is empty; on the first ``live_cap`` rows.
+    Returns (3,), or (W, 3) for a fleet's maps."""
+    L = new_map.pos.shape[-2]
     K = live_cap if 0 < live_cap < L else L
     idx = torch.arange(K, device=new_map.pos.device)
-    live_new = idx < new_map.nact
-    live_old = idx < old_map.nact
+    live_new = idx < new_map.nact[..., None]
+    live_old = idx < old_map.nact[..., None]
     d = torch.linalg.vector_norm(
-        old_map.pos[:K, None, :] - new_map.pos[None, :K, :], dim=-1)
-    d = torch.where(live_old[:, None] & live_new[None, :], d, float("inf"))
-    md = d.min(dim=0).values
-    mn = torch.where(live_new, md, float("inf")).min()
-    mx = torch.where(live_new, md, float("-inf")).max()
-    mean = (torch.where(live_new, md, 0.0).sum()
-            / torch.clamp(live_new.sum(), min=1))
-    stats = torch.stack([mn, mx, mean]).to(d.dtype)
+        old_map.pos[..., :K, None, :] - new_map.pos[..., None, :K, :],
+        dim=-1)
+    d = torch.where(live_old[..., :, None] & live_new[..., None, :], d,
+                    float("inf"))
+    md = d.amin(dim=-2)
+    mn = torch.where(live_new, md, float("inf")).amin(dim=-1)
+    mx = torch.where(live_new, md, float("-inf")).amax(dim=-1)
+    mean = (torch.where(live_new, md, 0.0).sum(dim=-1)
+            / torch.clamp(live_new.sum(dim=-1), min=1))
+    stats = torch.stack([mn, mx, mean], dim=-1).to(d.dtype)
     empty = (new_map.nact == 0) | (old_map.nact == 0)
-    return torch.where(empty, torch.zeros_like(stats), stats)
+    return torch.where(empty[..., None], torch.zeros_like(stats), stats)
 
 
 def _sync(device: torch.device) -> None:
@@ -394,3 +403,159 @@ def run(dataset: Dataset, config: ICMConfig, device,
         map_pos=cur_map.pos[:nact].cpu().numpy(),
         map_counts=cur_map.counts[:nact].cpu().numpy(),
         changes=changes, timings=timings)
+
+
+# ---------------------------------------------------------------------------
+# fleet mode: W worlds through the batched engine at once
+# ---------------------------------------------------------------------------
+
+def resolve_fleet_config(config: ICMConfig, datas) -> ICMConfig:
+    """Merge the per-world data-dependent resolutions into one config.
+
+    As ``icm_slam_tpu.solver.icm.resolve_fleet_config``: the widest beam
+    cap of any world; the association cap only if every world proves one
+    (else 0), marked checked, so that ``run(world, merged)`` keeps the
+    merged width.  A world's fleet result reproduces ``run(world,
+    merged)``, not ``run(world, config)``: the caps set the f32 reduction
+    widths.
+    """
+    shapes = {tuple(d.dist.shape) for d in datas}
+    if len(shapes) != 1:
+        raise ValueError(f"run_batched needs identical dataset shapes; "
+                         f"got {sorted(shapes)}")
+    resolved = [resolve_config(config, d) for d in datas]
+    obs_cap = max(r.obs_cap for r in resolved)
+    caps = [r.map_run_cap for r in resolved]
+    run_cap = 0 if any(c == 0 for c in caps) else max(caps)
+    return dataclasses.replace(resolved[0], obs_cap=obs_cap,
+                               map_run_cap=run_cap,
+                               map_run_cap_checked=run_cap > 0)
+
+
+def check_fleet_supported(config: ICMConfig) -> None:
+    """Raise NotImplementedError for the configurations ``run_batched``
+    does not run yet; the JAX package's fleet takes them.  Fleet mode runs
+    the batched Picard init and ``sweep_mode="batched"`` with the default
+    model, on the capped and the uncapped association, with either
+    ``pose_update``."""
+    if config.model is not None:
+        raise NotImplementedError(
+            "run_batched: custom EnergyModel hooks (config.model) are not "
+            "ported to fleet mode yet")
+    if config.sweep_mode != "batched":
+        raise NotImplementedError(
+            f"run_batched: sweep_mode={config.sweep_mode!r} is not ported "
+            f"to fleet mode yet (only 'batched')")
+    if not config.replicate_new_obs_quirk:
+        raise NotImplementedError(
+            "run_batched: replicate_new_obs_quirk=False (connected-"
+            "component labels) is not ported to fleet mode yet")
+    if not use_batched_init(config):
+        raise NotImplementedError(
+            f"run_batched: the causal init (init_mode="
+            f"{config.init_mode!r}) is not ported to fleet mode yet")
+
+
+def _stack(items):
+    """One SweepData or MapState with a leading world axis from W of them."""
+    return type(items[0])(*(torch.stack(f) for f in zip(*items)))
+
+
+def prepare_fleet(datasets, config: ICMConfig, device):
+    """Prepare and seed each world on the host, then stack them: returns
+    (data, seed, x0, merged config, weights), data and seed with a leading
+    world axis W and x0 (W, 3), all on ``device``, as the batched engine
+    takes a fleet."""
+    datas = [prepare(ds, config, device) for ds in datasets]
+    config = resolve_fleet_config(config, datas)
+    dtype = datas[0].dist.dtype
+    x0 = torch.stack([torch.as_tensor(np.asarray(ds.x0), device=device).to(
+        dtype) for ds in datasets])
+    seed = _stack([seed_map(d, x, config) for d, x in zip(datas, x0)])
+    return _stack(datas), seed, x0, config, weights(config, device)
+
+
+def run_batched(datasets, config: ICMConfig, device,
+                n_iters: Optional[int] = None, mesh=None) -> list:
+    """The full pipeline on W same-shape worlds at once, on ``device``.
+
+    Port of ``icm_slam_tpu.solver.icm.run_batched``: each world is
+    prepared and seeded on the host, then the worlds are stacked and the
+    batched init, the map filter and the N refinement sweeps run once on
+    the stack (``solver.sweeps`` on a leading world axis): the kernels see
+    W worlds in one launch, and one LM batch solves every world's poses.
+    The init's and every sweep's witnesses are checked per world after
+    the run, naming the world.  Returns one ``ICMResult`` per world
+    (``changes`` empty), each with the shared timings ``prepare_s``,
+    ``init_s``, ``hoist_s``, ``refine_s``, ``refine_per_iter_s``,
+    ``pipeline_s`` (init to the last sweep) and ``per_world_s``.
+
+    Every world has the same (T, n_beams) shape and runs under the merged
+    config of ``resolve_fleet_config``.  Configurations outside the
+    batched engine raise NotImplementedError (``check_fleet_supported``),
+    and so does ``mesh``: sharding a fleet over devices waits for the
+    port's ``parallel/``.  Without a mesh nothing is padded.
+    """
+    if not datasets:
+        return []
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_batched(mesh=...): sharding a fleet over devices is not "
+            "ported yet")
+    check_supported(config)
+    check_fleet_supported(config)
+    device = resolve_device(device)
+    n_iters = config.N if n_iters is None else n_iters
+    timings = {}
+
+    t0 = time.perf_counter()
+    data, seed, x0, config, w = prepare_fleet(datasets, config, device)
+    _sync(device)
+    timings["prepare_s"] = time.perf_counter() - t0
+
+    t_pipe = t0 = time.perf_counter()
+    state, x, raw_nact = init_sweep_batched(data, seed, x0, config, w)
+    init_wit = torch.stack([raw_nact.to(torch.int32),
+                            kept_count(state, config.cota)], dim=-1)
+    cur_map = filter_map(state, config.cota, config.dist_thr,
+                         live_cap=config.map_run_cap)
+    x_init = x
+    _sync(device)
+    timings["init_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    data = hoist_compaction(data, config)
+    _sync(device)
+    timings["hoist_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    wits = []
+    for _ in range(n_iters):
+        cur_map, x, wit = _refine_step(data, cur_map, x, config, w)
+        wits.append(wit)
+    _sync(device)
+    timings["refine_s"] = time.perf_counter() - t0
+    timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
+    timings["pipeline_s"] = time.perf_counter() - t_pipe
+    timings["per_world_s"] = timings["pipeline_s"] / len(datasets)
+
+    init_wit = init_wit.cpu().numpy()
+    wits = (torch.stack(wits, dim=1).cpu().numpy() if wits
+            else np.zeros((len(datasets), 0, 2), np.int32))
+    merge_cap = _init_merge_cap(config)
+    x_init, x = x_init.cpu().numpy(), x.cpu().numpy()
+    pos, counts = cur_map.pos.cpu().numpy(), cur_map.counts.cpu().numpy()
+    nacts = cur_map.nact.cpu().numpy()
+    results = []
+    for wdx in range(len(datasets)):
+        check_witness(init_wit[wdx], config, f"init sweep (world {wdx})",
+                      init_merge_cap=merge_cap)
+        for k in range(n_iters):
+            check_witness(wits[wdx, k], config,
+                          f"refinement sweep {k} (world {wdx})")
+        nact = int(nacts[wdx])
+        results.append(ICMResult(
+            x_init=x_init[wdx], x=x[wdx], map_pos=pos[wdx, :nact],
+            map_counts=counts[wdx, :nact], changes=np.zeros((0, 3)),
+            timings=dict(timings)))
+    return results

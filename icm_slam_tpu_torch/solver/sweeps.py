@@ -18,6 +18,15 @@ Port of ``icm_slam_tpu.solver.sweeps``:
   passes) of batched LM solves with the last frame's one-sided solve
   folded into the batch.
 
+The batched engine (``compact_data``, ``init_sweep_batched``,
+``batched_associate``, ``refine_sweep_batched`` and their helpers) runs on
+a leading world axis W: a fleet of W same-shape worlds
+(``solver.icm.run_batched``, the JAX package's ``vmap``) is the same
+sequence of operations as one world, each one W times as wide, and the
+kernels take W worlds in one launch.  Given one world (no W axis), each
+of these functions runs the same code with W = 1.  Every cumulative sum
+runs along the frames of its own world.
+
 The association runs through the port's CUDA kernels on a GPU: the fused
 association + per-frame sums (``ops.assoc_sums``) on the capped quirk
 branch, the nearest-landmark search (``ops.assoc``) on the other batched
@@ -43,7 +52,7 @@ from icm_slam_tpu_torch.core.energy import (DEFAULT_MODEL, EnergyModel,
                                             two_sided_jacobian,
                                             two_sided_residuals)
 from icm_slam_tpu_torch.core.geometry import beams_to_world
-from icm_slam_tpu_torch.mapping.landmark_map import (MapState,
+from icm_slam_tpu_torch.mapping.landmark_map import (MapState, add_rows,
                                                      compact_labels,
                                                      connected_component_labels,
                                                      filter_map, update)
@@ -53,7 +62,8 @@ from icm_slam_tpu_torch.solver.gauss_newton import lm_minimize
 
 
 class SweepData(NamedTuple):
-    """Pre-filtered dataset, fixed shapes. T frames x B beams."""
+    """Pre-filtered dataset, fixed shapes. T frames x B beams (a fleet's
+    worlds: the same with a leading world axis W)."""
     dist: torch.Tensor   # (T, B) median-filtered ranges
     mask: torch.Tensor   # (T, B) informative-beam mask
     ang: torch.Tensor    # (B,) beam angles, or (T, B) once compacted
@@ -61,24 +71,34 @@ class SweepData(NamedTuple):
     u: torch.Tensor      # (T, 2) controls [v, omega]
 
 
+def with_world_axis(nt):
+    """A SweepData or MapState of one world as a fleet of W = 1."""
+    return type(nt)(*(a[None] for a in nt))
+
+
+def world(nt, w: int = 0):
+    """World ``w`` of a fleet's SweepData or MapState."""
+    return type(nt)(*(a[w] for a in nt))
+
+
 def compact_data(data: SweepData, cap: int) -> SweepData:
     """Move each frame's valid beams to the front (stable) and keep ``cap``.
 
     Exact when ``cap`` >= the largest per-frame valid count (auto_obs_cap).
-    The returned ``ang`` is per-frame (T, cap).
+    The returned ``ang`` is per-frame (..., T, cap).
     """
-    order = torch.argsort((~data.mask).to(torch.int8), dim=1,
-                          stable=True)[:, :cap]
+    order = torch.argsort((~data.mask).to(torch.int8), dim=-1,
+                          stable=True)[..., :cap]
     return SweepData(
-        dist=torch.gather(data.dist, 1, order),
-        mask=torch.gather(data.mask, 1, order),
-        ang=data.ang[order],
+        dist=torch.gather(data.dist, -1, order),
+        mask=torch.gather(data.mask, -1, order),
+        ang=torch.gather(_per_frame_ang(data).ang, -1, order),
         odom=data.odom, u=data.u)
 
 
 def auto_obs_cap(mask, multiple: int = 8) -> int:
     """Smallest safe compaction budget for a dataset (host-side)."""
-    m = int(mask.sum(dim=1).max()) if mask.shape[0] else 0
+    m = int(mask.sum(dim=-1).max()) if mask.numel() else 0
     return max(multiple, -(-m // multiple) * multiple)
 
 
@@ -90,23 +110,28 @@ def resolve_init_merge_cap(config) -> int:
 
 
 def _per_frame_ang(data: SweepData) -> SweepData:
-    return data._replace(ang=data.ang.expand(data.dist.shape))
+    """``data`` with per-frame beam angles (..., T, B)."""
+    if data.ang.dim() == data.dist.dim():
+        return data
+    return data._replace(ang=data.ang.unsqueeze(-2).expand(data.dist.shape))
 
 
 def _frame_sums(px, py, lab, wgt, L):
     """Per-frame segment sums over L + 1 bins (bin L discards).
 
-    px, py, wgt: (F, B); lab: (F, B) labels, clamped to L.
-    Returns (sx, sy, cnt), each (F, L).
+    px, py, wgt: (..., F, B); lab: (..., F, B) labels, clamped to L.
+    Returns (sx, sy, cnt), each (..., F, L).
     """
-    F = lab.shape[0]
-    idx = (torch.clamp(lab, max=L).long()
+    lead = lab.shape[:-1]
+    F = lab[..., 0].numel()
+    idx = (torch.clamp(lab, max=L).long().reshape(F, -1)
            + torch.arange(F, device=lab.device)[:, None] * (L + 1))
-    vals = torch.stack([px * wgt, py * wgt, wgt])            # (3, F, B)
-    out = torch.zeros((3, F * (L + 1)), dtype=px.dtype, device=px.device)
-    out.index_add_(1, idx.reshape(-1), vals.reshape(3, -1))
-    out = out.view(3, F, L + 1)[:, :, :L]
-    return out[0], out[1], out[2]
+    vals = torch.stack([px * wgt, py * wgt, wgt], dim=-1)    # (..., B, 3)
+    out = add_rows(torch.zeros((F * (L + 1), 3), dtype=px.dtype,
+                               device=px.device),
+                   idx.reshape(-1), vals.reshape(-1, 3))
+    out = out.view(lead + (L + 1, 3))[..., :L, :]
+    return out[..., 0], out[..., 1], out[..., 2]
 
 
 def _model_of(config) -> EnergyModel:
@@ -303,59 +328,67 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
 # ---------------------------------------------------------------------------
 
 def _se2_scan(th, tx, ty, anc):
-    """Inclusive segmented SE(2) composition scan, log-step (Hillis-Steele).
+    """Inclusive segmented SE(2) composition scan along the last axis,
+    log-step (Hillis-Steele).
 
     Element i composes all elements from the last anchored one up to i;
     an anchored element resets the prefix.  Same operator as the JAX
     ``associative_scan``; the composition order differs, so results agree
     to rounding.
     """
-    n = th.shape[0]
+    n = th.shape[-1]
     off = 1
     while off < n:
-        tha, txa, tya, aa = th[:-off], tx[:-off], ty[:-off], anc[:-off]
-        thb, txb, tyb, ab = th[off:], tx[off:], ty[off:], anc[off:]
+        tha, txa, tya, aa = (a[..., :-off] for a in (th, tx, ty, anc))
+        thb, txb, tyb, ab = (a[..., off:] for a in (th, tx, ty, anc))
         ca, sa = torch.cos(tha), torch.sin(tha)
         th_n = torch.where(ab, thb, tha + thb)
         tx_n = torch.where(ab, txb, txa + ca * txb - sa * tyb)
         ty_n = torch.where(ab, tyb, tya + sa * txb + ca * tyb)
-        th = torch.cat([th[:off], th_n])
-        tx = torch.cat([tx[:off], tx_n])
-        ty = torch.cat([ty[:off], ty_n])
-        anc = torch.cat([anc[:off], aa | ab])
+        th = torch.cat([th[..., :off], th_n], dim=-1)
+        tx = torch.cat([tx[..., :off], tx_n], dim=-1)
+        ty = torch.cat([ty[..., :off], ty_n], dim=-1)
+        anc = torch.cat([anc[..., :off], aa | ab], dim=-1)
         off *= 2
     return th, tx, ty
 
 
 def _rechain(xs, x_prev_stale, x_last, keep_abs=None):
-    """Re-compose a chunk's pose chain from the carried anchor ``x_last``.
+    """Re-compose each world's chunk of poses (W, C, 3) from its carried
+    anchor ``x_last`` (W, 3).
 
-    Frames flagged ``keep_abs`` keep their absolute pose and re-anchor the
-    chain; the others contribute their pose relative to the stale
-    predecessor (``icm_slam_tpu.solver.sweeps.init_sweep_batched``).
+    Frames flagged ``keep_abs`` (W, C) keep their absolute pose and
+    re-anchor the chain; the others contribute their pose relative to the
+    stale predecessor (``icm_slam_tpu.solver.sweeps.init_sweep_batched``).
     """
-    C = xs.shape[0]
-    dth = xs[:, 2] - x_prev_stale[:, 2]
-    dx = xs[:, 0] - x_prev_stale[:, 0]
-    dy = xs[:, 1] - x_prev_stale[:, 1]
-    c = torch.cos(x_prev_stale[:, 2])
-    sn = torch.sin(x_prev_stale[:, 2])
+    W, C = xs.shape[:2]
+    dth = xs[..., 2] - x_prev_stale[..., 2]
+    dx = xs[..., 0] - x_prev_stale[..., 0]
+    dy = xs[..., 1] - x_prev_stale[..., 1]
+    c = torch.cos(x_prev_stale[..., 2])
+    sn = torch.sin(x_prev_stale[..., 2])
     rx = c * dx + sn * dy
     ry = -sn * dx + c * dy
 
-    th = torch.cat([x_last[2:3], dth])
-    px = torch.cat([x_last[0:1], rx])
-    py = torch.cat([x_last[1:2], ry])
+    th = torch.cat([x_last[:, 2:3], dth], dim=1)
+    px = torch.cat([x_last[:, 0:1], rx], dim=1)
+    py = torch.cat([x_last[:, 1:2], ry], dim=1)
     if keep_abs is None:
-        anc = torch.arange(C + 1, device=xs.device) == 0
+        anc = (torch.arange(C + 1, device=xs.device) == 0).expand(W, C + 1)
     else:
-        anc = torch.cat([torch.ones((1,), dtype=torch.bool, device=xs.device),
-                         keep_abs])
-    th = torch.where(anc, torch.cat([x_last[2:3], xs[:, 2]]), th)
-    px = torch.where(anc, torch.cat([x_last[0:1], xs[:, 0]]), px)
-    py = torch.where(anc, torch.cat([x_last[1:2], xs[:, 1]]), py)
+        anc = torch.cat([torch.ones((W, 1), dtype=torch.bool,
+                                    device=xs.device), keep_abs], dim=1)
+    th = torch.where(anc, torch.cat([x_last[:, 2:3], xs[..., 2]], dim=1), th)
+    px = torch.where(anc, torch.cat([x_last[:, 0:1], xs[..., 0]], dim=1), px)
+    py = torch.where(anc, torch.cat([x_last[:, 1:2], xs[..., 1]], dim=1), py)
     th, px, py = _se2_scan(th, px, py, anc)
-    return torch.stack([px, py, th], dim=-1)[1:]
+    return torch.stack([px, py, th], dim=-1)[:, 1:]
+
+
+def _flat(a, lead: int = 2):
+    """``a`` with its first ``lead`` axes (worlds, frames) merged into the
+    problem axis P that the LM solver and the energy hooks take."""
+    return a.reshape((-1,) + a.shape[lead:])
 
 
 def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
@@ -365,77 +398,96 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
     Returns (merged map_state, poses (T, 3), raw_nact), ``raw_nact`` being
     the pre-merge allocated-label count (the table-overflow witness).  See
     ``icm_slam_tpu.solver.sweeps.init_sweep_batched`` for the algorithm.
+    A fleet (``x0`` (W, 3), ``data`` and ``seed`` with the world axis)
+    solves the W * C poses of a chunk in one LM batch, returns (W, T, 3)
+    poses and (W,) counts, and merges the W tables in one ``filter_map``.
     """
+    if x0.dim() == 1:
+        state, x, nact = init_sweep_batched(
+            with_world_axis(data), with_world_axis(seed), x0[None], config,
+            w)
+        return world(state), x[0], nact[0]
     cap = config.obs_cap or 0
-    if cap and cap < data.dist.shape[1]:
+    if cap and cap < data.dist.shape[-1]:
         data = compact_data(data, cap)
     else:
         data = _per_frame_ang(data)
 
-    T, B = data.dist.shape
-    L = seed.pos.shape[0]
+    W, T, B = data.dist.shape
+    L = seed.pos.shape[-2]
     dtype, dev = x0.dtype, x0.device
     dist_thr = config.dist_thr
     deltat = config.deltat
-    kinematics = _model_of(config).kinematics
+    model = _model_of(config)
     C = max(2, int(config.init_chunk_len))
     R = max(1, int(config.init_rounds))
     iters = config.init_gn_iters or config.pose_gn_iters
-    z3 = torch.zeros((C, 3), dtype=dtype, device=dev)
-    z2 = torch.zeros((C, 2), dtype=dtype, device=dev)
+    z3 = torch.zeros((W, C, 3), dtype=dtype, device=dev)
+    z2 = torch.zeros((W * C, 2), dtype=dtype, device=dev)
 
-    # frames 1..T-1, padded to a multiple of C with empty frames
+    def kinematics(xx, uu):
+        """The model's g over the chunk's W * C poses, as (W, C, 3)."""
+        return model.kinematics(_flat(xx), _flat(uu), deltat).view(xx.shape)
+
+    # frames 1..T-1 of every world, padded to a multiple of C with empty
+    # frames: (W, nc, C, ...)
     n = T - 1
     nc = -(-n // C)
     pad = nc * C - n
 
     def pad_c(a):
-        z = torch.zeros((pad,) + a.shape[1:], dtype=a.dtype, device=a.device)
-        return torch.cat([a, z]).reshape((nc, C) + a.shape[1:])
+        z = torch.zeros((W, pad) + a.shape[2:], dtype=a.dtype,
+                        device=a.device)
+        return torch.cat([a, z], dim=1).reshape((W, nc, C) + a.shape[2:])
 
-    dist = pad_c(data.dist[1:])
-    mask = pad_c(data.mask[1:])
-    ang = pad_c(data.ang[1:])
-    odom = pad_c(data.odom[1:])
-    u_prev = pad_c(data.u[:T - 1])
-    odom_prev = pad_c(data.odom[:T - 1])
+    dist = pad_c(data.dist[:, 1:])
+    mask = pad_c(data.mask[:, 1:])
+    ang = pad_c(data.ang[:, 1:])
+    odom = pad_c(data.odom[:, 1:])
+    u_prev = pad_c(data.u[:, :T - 1])
+    odom_prev = pad_c(data.odom[:, :T - 1])
 
-    base_sx = seed.pos[:, 0] * seed.counts
-    base_sy = seed.pos[:, 1] * seed.counts
+    base_sx = seed.pos[..., 0] * seed.counts                  # (W, L)
+    base_sy = seed.pos[..., 1] * seed.counts
     base_cnt = seed.counts
-    nact = seed.nact
+    nact = seed.nact                                          # (W,)
     x_last = x0
     chunks = []
     for ci in range(nc):
-        dist_c, mask_c, ang_c = dist[ci], mask[ci], ang[ci]
-        odom_c, u_prev_c, odom_prev_c = odom[ci], u_prev[ci], odom_prev[ci]
-        empty = ~mask_c.any(dim=1)                                # (C,)
+        dist_c, mask_c, ang_c = dist[:, ci], mask[:, ci], ang[:, ci]
+        odom_c, u_prev_c = odom[:, ci], u_prev[:, ci]
+        odom_prev_c = odom_prev[:, ci]
+        empty = ~mask_c.any(dim=-1)                           # (W, C)
 
         def assoc_pass(pts, pts_prev, lab_prev):
             """One causal association round + anchored matched targets."""
             wgt = (lab_prev < L).to(dtype)
             sx, sy, cnt = _frame_sums(pts_prev[..., 0], pts_prev[..., 1],
-                                      lab_prev, wgt, L)
-            # EXCLUSIVE prefix: the table as each frame sees it
-            csx = base_sx[None] + torch.cumsum(sx, 0) - sx        # (C, L)
-            csy = base_sy[None] + torch.cumsum(sy, 0) - sy
-            ccn = base_cnt[None] + torch.cumsum(cnt, 0) - cnt
+                                      lab_prev, wgt, L)       # (W, C, L)
+            # EXCLUSIVE prefix along each world's frames: the table as
+            # each frame sees it
+            csx = base_sx[:, None] + torch.cumsum(sx, 1) - sx
+            csy = base_sy[:, None] + torch.cumsum(sy, 1) - sy
+            ccn = base_cnt[:, None] + torch.cumsum(cnt, 1) - cnt
             ex = csx / torch.clamp(ccn, min=1.0)
             ey = csy / torch.clamp(ccn, min=1.0)
             live = ccn > 0
-            dx = pts[..., 0:1] - ex[:, None, :]
-            dy = pts[..., 1:2] - ey[:, None, :]
-            d2 = torch.where(live[:, None, :], dx * dx + dy * dy,
+            dx = pts[..., 0:1] - ex[:, :, None, :]            # (W, C, B, L)
+            dy = pts[..., 1:2] - ey[:, :, None, :]
+            d2 = torch.where(live[:, :, None, :], dx * dx + dy * dy,
                              float("inf"))
-            min2, lab = d2.min(dim=2)
+            min2, lab = d2.min(dim=-1)
             lab = lab.to(torch.int32)
             far = (min2 > dist_thr * dist_thr) & mask_c
             lab = torch.where(mask_c, lab, L)
-            # quirk (ICM_SLAM.py:176): one shared new label per far frame
-            has_far = far.any(dim=1)
-            new_id = nact + torch.cumsum(has_far, 0, dtype=torch.int32) - 1
-            lab = torch.where(far, torch.clamp(new_id[:, None], max=L), lab)
-            n_new = has_far.sum().to(torch.int32)
+            # quirk (ICM_SLAM.py:176): one shared new label per far frame,
+            # numbered along the frames of its own world
+            has_far = far.any(dim=-1)                         # (W, C)
+            new_id = nact[:, None] + torch.cumsum(has_far, 1,
+                                                  dtype=torch.int32) - 1
+            lab = torch.where(far, torch.clamp(new_id[..., None], max=L),
+                              lab)
+            n_new = has_far.sum(dim=1).to(torch.int32)        # (W,)
 
             wgt_c = (lab < L).to(dtype)
             osx, osy, ocn = _frame_sums(pts[..., 0], pts[..., 1], lab,
@@ -443,45 +495,48 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
             rx = (csx + osx) / torch.clamp(ccn + ocn, min=1.0)
             ry = (csy + osy) / torch.clamp(ccn + ocn, min=1.0)
             lab_cl = torch.clamp(lab, 0, L - 1).long()
-            matched = torch.stack([torch.gather(rx, 1, lab_cl),
-                                   torch.gather(ry, 1, lab_cl)], dim=-1)
+            matched = torch.stack([torch.gather(rx, -1, lab_cl),
+                                   torch.gather(ry, -1, lab_cl)], dim=-1)
             # far beams match their own frame's far-cluster mean
-            ox = torch.gather(osx, 1, lab_cl)
-            oy = torch.gather(osy, 1, lab_cl)
-            oc = torch.clamp(torch.gather(ocn, 1, lab_cl), min=1.0)
+            ox = torch.gather(osx, -1, lab_cl)
+            oy = torch.gather(osy, -1, lab_cl)
+            oc = torch.clamp(torch.gather(ocn, -1, lab_cl), min=1.0)
             matched = torch.where(far[..., None],
                                   torch.stack([ox / oc, oy / oc], dim=-1),
                                   matched)
-            fx = base_sx + osx.sum(dim=0)
-            fy = base_sy + osy.sum(dim=0)
-            fc = base_cnt + ocn.sum(dim=0)
+            fx = base_sx + osx.sum(dim=1)
+            fy = base_sy + osy.sum(dim=1)
+            fc = base_cnt + ocn.sum(dim=1)
             return lab, n_new, matched, fx, fy, fc
 
         def solve_round(x_prev_arr, xp, matched):
             prob = PoseProblem(
-                dist=dist_c, ang=ang_c, mask=mask_c, matched=matched,
-                x_prev=x_prev_arr, u_prev=u_prev_c, odo_prev=odom_prev_c,
-                odo_cur=odom_c, x_next=z3, u_cur=z2, odo_next=z3)
-            xs = lm_minimize(*_one_sided(prob, w, config), xp, iters=iters)
+                dist=_flat(dist_c), ang=_flat(ang_c), mask=_flat(mask_c),
+                matched=_flat(matched), x_prev=_flat(x_prev_arr),
+                u_prev=_flat(u_prev_c), odo_prev=_flat(odom_prev_c),
+                odo_cur=_flat(odom_c), x_next=_flat(z3), u_cur=z2,
+                odo_next=_flat(z3))
+            xs = lm_minimize(*_one_sided(prob, w, config), _flat(xp),
+                             iters=iters).view(W, C, 3)
             # empty frames take the pure kinematic increment; solved frames
             # keep their absolute pose
-            xs = torch.where(empty[:, None], xp, xs)
+            xs = torch.where(empty[..., None], xp, xs)
             return _rechain(xs, x_prev_arr, x_last, keep_abs=~empty)
 
         # round 0: chain the measured odometry increments from the anchor
-        dth0 = odom_c[:, 2] - odom_prev_c[:, 2]
-        dwx = odom_c[:, 0] - odom_prev_c[:, 0]
-        dwy = odom_c[:, 1] - odom_prev_c[:, 1]
-        c0 = torch.cos(odom_prev_c[:, 2])
-        s0 = torch.sin(odom_prev_c[:, 2])
+        dth0 = odom_c[..., 2] - odom_prev_c[..., 2]
+        dwx = odom_c[..., 0] - odom_prev_c[..., 0]
+        dwy = odom_c[..., 1] - odom_prev_c[..., 1]
+        c0 = torch.cos(odom_prev_c[..., 2])
+        s0 = torch.sin(odom_prev_c[..., 2])
         rel0 = torch.stack([c0 * dwx + s0 * dwy, -s0 * dwx + c0 * dwy,
                             dth0], dim=-1)
         x = _rechain(rel0, z3, x_last)
-        lab = torch.full((C, B), L, dtype=torch.int32, device=dev)
-        pts_prev = torch.zeros((C, B, 2), dtype=dtype, device=dev)
+        lab = torch.full((W, C, B), L, dtype=torch.int32, device=dev)
+        pts_prev = torch.zeros((W, C, B, 2), dtype=dtype, device=dev)
         for _ in range(R):
-            x_prev_arr = torch.cat([x_last[None], x[:-1]])
-            xp = kinematics(x_prev_arr, u_prev_c, deltat)
+            x_prev_arr = torch.cat([x_last[:, None], x[:, :-1]], dim=1)
+            xp = kinematics(x_prev_arr, u_prev_c)
             pts = beams_to_world(xp, dist_c, ang_c)
             lab, n_new, matched, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
             pts_prev = pts
@@ -489,20 +544,20 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
 
         if config.init_final_assoc:
             # final map-build from the converged poses (no solves)
-            x_prev_arr = torch.cat([x_last[None], x[:-1]])
-            xp = kinematics(x_prev_arr, u_prev_c, deltat)
+            x_prev_arr = torch.cat([x_last[:, None], x[:, :-1]], dim=1)
+            xp = kinematics(x_prev_arr, u_prev_c)
             pts = beams_to_world(xp, dist_c, ang_c)
             lab, n_new, _, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
 
         base_sx, base_sy, base_cnt = fx, fy, fc
         nact = nact + n_new
-        x_last = x[-1]
+        x_last = x[:, -1]
         chunks.append(x)
 
-    x = torch.cat([x0[None], torch.cat(chunks)[:n]])
+    x = torch.cat([x0[:, None], torch.cat(chunks, dim=1)[:, :n]], dim=1)
     live = base_cnt > 0
     pos = (torch.stack([base_sx, base_sy], dim=-1)
-           / torch.clamp(base_cnt, min=1.0)[:, None] * live[:, None])
+           / torch.clamp(base_cnt, min=1.0)[..., None] * live[..., None])
     # merge duplicate columns without pruning (cota = 0); the raw
     # allocated-label count is returned as the overflow witness
     merged = filter_map(MapState(pos, base_cnt, nact), 0.0, dist_thr,
@@ -523,19 +578,25 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
     cap columns are searched (run() guarantees the live count stays below
     it).  On the quirk path that search is the fused association + sums
     kernel, with the gate in the d^2 form; otherwise the nearest-landmark
-    kernel searches the columns and the gate compares the distance.
+    kernel searches the columns and the gate compares the distance.  A
+    fleet (``x`` (W, T, 3), ``data`` and ``old_map`` with the world axis)
+    is one kernel launch for all W worlds.
     """
-    L = old_map.pos.shape[0]
+    if x.dim() == 2:
+        lab, final, matched = batched_associate(
+            with_world_axis(data), with_world_axis(old_map), x[None], config)
+        return lab[0], world(final), matched[0]
+    L = old_map.pos.shape[-2]
     dist_thr = config.dist_thr
     cap_l = config.map_run_cap if 0 < config.map_run_cap < L else 0
 
-    pts = beams_to_world(x, data.dist, data.ang)             # (T, B, 2)
+    pts = beams_to_world(x, data.dist, data.ang)             # (W, T, B, 2)
     if not config.replicate_new_obs_quirk:
         return _associate_components(data, old_map, pts, config,
                                      cap_l or L)
     if cap_l:
         lab_n, d2min, sums = associate_and_sums(
-            pts, old_map.pos[:cap_l], data.mask, old_map.nact, dist_thr)
+            pts, old_map.pos[:, :cap_l], data.mask, old_map.nact, dist_thr)
         lab = torch.where(d2min > dist_thr * dist_thr, -1, lab_n)
     else:
         lab_n, min_dist = nearest_landmark(pts, old_map.pos, old_map.nact)
@@ -543,11 +604,13 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
     lab = torch.where(data.mask, lab, L)
 
     far = lab == -1
-    has_far = far.any(dim=1)                                  # (T,)
-    # frame t's new label = nact0 + (#frames before t that spawned one)
-    new_id = old_map.nact + torch.cumsum(has_far, 0, dtype=torch.int32) - 1
-    lab = torch.where(far, new_id[:, None], lab)
-    n_new = has_far.sum().to(torch.int32)
+    has_far = far.any(dim=-1)                                 # (W, T)
+    # frame t's new label = nact0 + (#frames of its world before t that
+    # spawned one)
+    new_id = old_map.nact[:, None] + torch.cumsum(has_far, 1,
+                                                  dtype=torch.int32) - 1
+    lab = torch.where(far, new_id[..., None], lab)
+    n_new = has_far.sum(dim=1).to(torch.int32)
     if cap_l:
         final, matched = _running_means_capped(
             pts, data.mask, lab, far, has_far, new_id, sums, old_map, n_new,
@@ -561,24 +624,26 @@ def _associate_components(data: SweepData, old_map: MapState, pts, config,
                           Lr):
     """The non-quirk branch of ``batched_associate``: far beams of each
     frame split into connected components at dist_thr, labelled from
-    ``nact + cumsum(k) - k`` (k = the frame's component count); the
-    association searches the first ``Lr`` columns, gated on the distance
+    ``nact + cumsum(k) - k`` (k = the frame's component count, summed
+    along its world's frames); the association searches the first ``Lr``
+    columns, gated on the distance
     (``icm_slam_tpu.solver.sweeps.batched_associate``, :650-658 and
     :779-793)."""
-    L = old_map.pos.shape[0]
-    B = pts.shape[1]
-    lab_n, min_dist = nearest_landmark(pts, old_map.pos[:Lr], old_map.nact)
+    L = old_map.pos.shape[-2]
+    B = pts.shape[-2]
+    lab_n, min_dist = nearest_landmark(pts, old_map.pos[:, :Lr],
+                                       old_map.nact)
     lab = torch.where(min_dist > config.dist_thr, -1, lab_n)
     lab = torch.where(data.mask, lab, L)
     far = lab == -1
     fm = far & data.mask
     comp = compact_labels(
         connected_component_labels(pts, fm, config.dist_thr), fm, B)
-    k = torch.where(fm.any(dim=1),
-                    torch.where(fm, comp, -1).max(dim=1).values + 1, 0)
-    base = old_map.nact + torch.cumsum(k, 0, dtype=torch.int32) - k
-    lab = torch.where(far, base[:, None] + comp, lab)
-    n_new = k.sum().to(torch.int32)
+    k = torch.where(fm.any(dim=-1),
+                    torch.where(fm, comp, -1).amax(dim=-1) + 1, 0)
+    base = old_map.nact[:, None] + torch.cumsum(k, 1, dtype=torch.int32) - k
+    lab = torch.where(far, base[..., None] + comp, lab)
+    n_new = k.sum(dim=1).to(torch.int32)
     final, matched = _running_means_full(pts, lab, old_map, n_new)
     return lab, final, matched
 
@@ -590,59 +655,62 @@ def _running_means_capped(pts, mask, lab, far, has_far, new_id, sums,
     A new landmark only receives observations from its creating frame, so
     its running mean is that frame's far-beam mean; old labels are < cap_l.
     """
-    L = old_map.pos.shape[0]
+    W, L = old_map.counts.shape
     dtype, dev = pts.dtype, pts.device
-    far_w = (far & mask).to(dtype)                            # (T, B)
-    fcnt = far_w.sum(dim=1)                                   # (T,)
-    fmean = torch.stack([(pts[..., 0] * far_w).sum(dim=1),
-                         (pts[..., 1] * far_w).sum(dim=1)], dim=-1) \
-        / torch.clamp(fcnt, min=1.0)[:, None]                 # (T, 2)
+    far_w = (far & mask).to(dtype)                            # (W, T, B)
+    fcnt = far_w.sum(dim=-1)                                  # (W, T)
+    fmean = torch.stack([(pts[..., 0] * far_w).sum(dim=-1),
+                         (pts[..., 1] * far_w).sum(dim=-1)], dim=-1) \
+        / torch.clamp(fcnt, min=1.0)[..., None]               # (W, T, 2)
 
-    cums = torch.cumsum(sums, dim=0)                          # (T, 3, cap)
-    cum_cnt = cums[:, 2]
+    cums = torch.cumsum(sums, dim=1)                          # (W, T, 3, cap)
+    cum_cnt = cums[:, :, 2]
     denom = torch.clamp(cum_cnt, min=1.0)
-    run_x = cums[:, 0] / denom
-    run_y = cums[:, 1] / denom
+    run_x = cums[:, :, 0] / denom
+    run_y = cums[:, :, 1] / denom
 
     lab_c = torch.clamp(lab, 0, cap_l - 1).long()
-    matched = torch.stack([torch.gather(run_x, 1, lab_c),
-                           torch.gather(run_y, 1, lab_c)], dim=-1)
-    matched = torch.where(far[..., None], fmean[:, None, :], matched)
+    matched = torch.stack([torch.gather(run_x, -1, lab_c),
+                           torch.gather(run_y, -1, lab_c)], dim=-1)
+    matched = torch.where(far[..., None], fmean[..., None, :], matched)
 
     # final table: old columns from the cumulative sums, new columns from
     # the per-frame far means; row L is the discard row
-    live_last = cum_cnt[-1] > 0
-    pos = torch.zeros((L + 1, 2), dtype=dtype, device=dev)
-    pos[:cap_l] = torch.stack([run_x[-1], run_y[-1]], dim=-1) \
-        * live_last[:, None]
-    counts = torch.zeros((L + 1,), dtype=dtype, device=dev)
-    counts[:cap_l] = cum_cnt[-1]
-    scatter_id = torch.clamp(torch.where(has_far, new_id, L), 0, L).long()
-    pos[scatter_id] = fmean
-    counts[scatter_id] = fcnt
-    return MapState(pos[:L], counts[:L], old_map.nact + n_new), matched
+    live_last = cum_cnt[:, -1] > 0
+    pos = torch.zeros((W, L + 1, 2), dtype=dtype, device=dev)
+    pos[:, :cap_l] = torch.stack([run_x[:, -1], run_y[:, -1]], dim=-1) \
+        * live_last[..., None]
+    counts = torch.zeros((W, L + 1), dtype=dtype, device=dev)
+    counts[:, :cap_l] = cum_cnt[:, -1]
+    # each world's rows L + 1 apart in the flat table: one index a frame
+    scatter_id = (torch.clamp(torch.where(has_far, new_id, L), 0, L).long()
+                  + torch.arange(W, device=dev)[:, None] * (L + 1))
+    pos.view(-1, 2)[scatter_id.reshape(-1)] = fmean.reshape(-1, 2)
+    counts.view(-1)[scatter_id.reshape(-1)] = fcnt.reshape(-1)
+    return MapState(pos[:, :L], counts[:, :L], old_map.nact + n_new), matched
 
 
 def _running_means_full(pts, lab, old_map, n_new):
     """Running means over all L columns by per-frame segment sums."""
-    L = old_map.pos.shape[0]
+    L = old_map.pos.shape[-2]
     w = (lab < L).to(pts.dtype)
     sx, sy, cnts = _frame_sums(pts[..., 0], pts[..., 1], lab, w, L)
-    cum_cnt = torch.cumsum(cnts, dim=0)                       # (T, L)
+    cum_cnt = torch.cumsum(cnts, dim=1)                       # (W, T, L)
     denom = torch.clamp(cum_cnt, min=1.0)
-    run_x = torch.cumsum(sx, dim=0) / denom
-    run_y = torch.cumsum(sy, dim=0) / denom
+    run_x = torch.cumsum(sx, dim=1) / denom
+    run_y = torch.cumsum(sy, dim=1) / denom
     lab_c = torch.clamp(lab, 0, L - 1).long()
-    matched = torch.stack([torch.gather(run_x, 1, lab_c),
-                           torch.gather(run_y, 1, lab_c)], dim=-1)
-    live_last = cum_cnt[-1] > 0
-    final_pos = torch.stack([run_x[-1], run_y[-1]], dim=-1) \
-        * live_last[:, None]
-    return MapState(final_pos, cum_cnt[-1], old_map.nact + n_new), matched
+    matched = torch.stack([torch.gather(run_x, -1, lab_c),
+                           torch.gather(run_y, -1, lab_c)], dim=-1)
+    live_last = cum_cnt[:, -1] > 0
+    final_pos = torch.stack([run_x[:, -1], run_y[:, -1]], dim=-1) \
+        * live_last[..., None]
+    return MapState(final_pos, cum_cnt[:, -1], old_map.nact + n_new), matched
 
 
 def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None):
-    """Two-sided LM solves for the poses ``ts`` (K,) as one batch of K.
+    """Two-sided LM solves for the poses ``ts`` (K,) of every world, as one
+    batch of W * K problems; returns (W, K, 3).
 
     With ``last_t`` the last real frame is solved with the one-sided cost
     folded into the batch: zeroing the 6 forward rows of its residual (and
@@ -651,49 +719,60 @@ def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None):
     That needs the default [forward (6), one-sided] stacking; without
     ``last_t`` every pose takes the plain two-sided cost.
     """
-    T = x.shape[0]
+    W, T = x.shape[:2]
     model = _model_of(config)
     dist_c, ang_c, mask_c, matched_c = obs
     tm1 = torch.clamp(ts - 1, min=0)
     tp1 = torch.clamp(ts + 1, max=T - 1)
+
+    def at(a, i):
+        return _flat(a[:, i])
+
     prob = PoseProblem(
-        dist=dist_c[ts], ang=ang_c[ts], mask=mask_c[ts],
-        matched=matched_c[ts], x_prev=x[tm1], u_prev=data.u[tm1],
-        odo_prev=data.odom[tm1], odo_cur=data.odom[ts],
-        x_next=x[tp1], u_cur=data.u[ts], odo_next=data.odom[tp1])
+        dist=at(dist_c, ts), ang=at(ang_c, ts), mask=at(mask_c, ts),
+        matched=at(matched_c, ts), x_prev=at(x, tm1), u_prev=at(data.u, tm1),
+        odo_prev=at(data.odom, tm1), odo_cur=at(data.odom, ts),
+        x_next=at(x, tp1), u_cur=at(data.u, ts), odo_next=at(data.odom, tp1))
     resid2, jac2 = _two_sided(prob, w, config)
-    x_init = (x[tm1] + x[tp1]) / 2.0
+    x_init = (prob.x_prev + prob.x_next) / 2.0
     if last_t is None:
-        return lm_minimize(resid2, jac2, x_init, iters=config.pose_gn_iters)
-    is_last = (ts == last_t)[:, None]
+        return lm_minimize(resid2, jac2, x_init,
+                           iters=config.pose_gn_iters).view(W, -1, 3)
+    is_last = (ts == last_t).repeat(W)[:, None]
     x_init = torch.where(
-        is_last, model.kinematics(x[tm1], data.u[tm1], config.deltat), x_init)
+        is_last, model.kinematics(prob.x_prev, prob.u_prev, config.deltat),
+        x_init)
 
     def fold(v):
-        """Zero the last frame's 6 forward rows of v (K, m) or (K, m, 3)."""
+        """Zero the last frame's 6 forward rows of v (P, m) or (P, m, 3)."""
         rows = is_last & (torch.arange(v.shape[1], device=v.device) < 6)
         return torch.where(rows.view(rows.shape + (1,) * (v.dim() - 2)),
                            0.0, v)
     return lm_minimize(lambda xx: fold(resid2(xx)),
                        lambda xx: fold(jac2(xx)),
-                       x_init, iters=config.pose_gn_iters)
+                       x_init, iters=config.pose_gn_iters).view(W, -1, 3)
 
 
 def _solve_one_at(data: SweepData, x, obs, config, w, t: int):
-    """One-sided LM solve (3,) of frame ``t`` (the trajectory's last) from
-    its kinematic prediction, against the current ``x``."""
+    """One-sided LM solves (W, 3) of frame ``t`` (the trajectory's last) of
+    every world from its kinematic prediction, against the current ``x``;
+    given one world ((T, 3) poses), its solve (3,)."""
+    if x.dim() == 2:
+        return _solve_one_at(with_world_axis(data), x[None],
+                             tuple(a[None] for a in obs), config, w, t)[0]
     dist_c, ang_c, mask_c, matched_c = obs
+    W = x.shape[0]
     tm1 = max(t - 1, 0)
-    z3 = torch.zeros((1, 3), dtype=x.dtype, device=x.device)
+    z3 = torch.zeros((W, 3), dtype=x.dtype, device=x.device)
     prob = PoseProblem(
-        dist=dist_c[t][None], ang=ang_c[t][None], mask=mask_c[t][None],
-        matched=matched_c[t][None], x_prev=x[tm1][None],
-        u_prev=data.u[tm1][None], odo_prev=data.odom[tm1][None],
-        odo_cur=data.odom[t][None], x_next=z3, u_cur=z3[:, :2],
-        odo_next=z3)
-    x_init = _predict(_model_of(config), x[tm1], data.u[tm1], config.deltat)
-    return lm_minimize(*_one_sided(prob, w, config), x_init[None],
-                       iters=config.pose_gn_iters)[0]
+        dist=dist_c[:, t], ang=ang_c[:, t], mask=mask_c[:, t],
+        matched=matched_c[:, t], x_prev=x[:, tm1], u_prev=data.u[:, tm1],
+        odo_prev=data.odom[:, tm1], odo_cur=data.odom[:, t], x_next=z3,
+        u_cur=z3[:, :2], odo_next=z3)
+    x_init = _model_of(config).kinematics(x[:, tm1], data.u[:, tm1],
+                                          config.deltat)
+    return lm_minimize(*_one_sided(prob, w, config), x_init,
+                       iters=config.pose_gn_iters)
 
 
 def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
@@ -705,15 +784,22 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
 
     The last real frame ``last_t`` rides the batch (``_solve_two_at``)
     unless the model replaces or extends the two-sided cost; then it is
-    solved on its own and written into its slot of the batch.
+    solved on its own and written into its slot of the batch.  A fleet
+    (``x`` (W, T, 3), ``data`` and ``old_map`` with the world axis) solves
+    every world's poses of a half-pass in one LM batch.
     """
-    T = x.shape[0]
+    if x.dim() == 2:
+        final_map, x = refine_sweep_batched(
+            with_world_axis(data), with_world_axis(old_map), x[None], config,
+            w, last_t)
+        return world(final_map), x[0]
+    T = x.shape[1]
     if last_t is None:
         last_t = T - 1
-    empty = ~data.mask.any(dim=1)                             # (T,)
+    empty = ~data.mask.any(dim=-1)                            # (W, T)
 
-    cap = config.obs_cap if config.obs_cap else data.dist.shape[1]
-    if cap < data.dist.shape[1]:
+    cap = config.obs_cap if config.obs_cap else data.dist.shape[-1]
+    if cap < data.dist.shape[-1]:
         data_c = compact_data(data, cap)
     else:
         data_c = _per_frame_ang(data)
@@ -728,14 +814,14 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
                              last_t if fold_last else None)
         if not fold_last and last_t >= start \
                 and (last_t - start) % stride == 0:
-            cand[(last_t - start) // stride] = _solve_one_at(
+            cand[:, (last_t - start) // stride] = _solve_one_at(
                 data, x, obs, config, w, last_t)
         tm1 = torch.clamp(ts - 1, min=0)
         tp1 = torch.clamp(ts + 1, max=last_t)
-        x_avg = (x[tm1] + x[tp1]) / 2.0
-        cand = torch.where(empty[ts][:, None], x_avg, cand)
-        cand = torch.where((ts <= last_t)[:, None], cand, x[ts])
-        return x.index_copy(0, ts, cand)
+        x_avg = (x[:, tm1] + x[:, tp1]) / 2.0
+        cand = torch.where(empty[:, ts][..., None], x_avg, cand)
+        cand = torch.where((ts <= last_t)[:, None], cand, x[:, ts])
+        return x.index_copy(1, ts, cand)
 
     if config.pose_update == "jacobi":
         every = torch.arange(1, T, device=x.device)

@@ -14,7 +14,14 @@ ties for every launch variant, resident and chunked; a misaligned view
 refused; the per-frame map
 update through K2 against the same call on CPU tensors, labels and counts
 exact, positions atol 1e-5; small end-to-end runs on the GPU against the
-same runs on the CPU, census exact and poses atol 1e-3.
+same runs on the CPU, census exact and poses atol 1e-3.  The world axis
+of both kernels (a fleet of W worlds in one launch): each world's slice
+against the plain version as above and bitwise against the launch on that
+world alone, with another live count in every world and each world's
+table a column slice of a wider one; a fleet run on the GPU against the
+same fleet on the CPU, census exact and poses atol 1e-3; on the GPU,
+``add_rows`` and whole runs repeat bitwise, and a fleet's world is bitwise
+its ``run()`` with the merged config.
 """
 import numpy as np
 import pytest
@@ -320,3 +327,121 @@ def test_small_engine_runs_gpu_match_cpu(dev, kw):
     for f in ("x_init", "x", "map_pos"):
         np.testing.assert_allclose(getattr(gpu, f), getattr(cpu, f),
                                    atol=1e-3)
+
+
+def _world_inputs(W, T, B, K, seed, dev, width=None):
+    """W worlds of ``_inputs``; each world's table is the first K columns
+    of a table ``width`` wide, as a fleet's capped sweep passes them."""
+    worlds = [_inputs(T, B, width or K, seed + w, dev) for w in range(W)]
+    pts, mp, mask = (torch.stack(f) for f in zip(*worlds))
+    return pts.contiguous(), mp[:, :K], mask.contiguous()
+
+
+@pytest.mark.parametrize("shape", [(4, 65, 48, 128), (3, 33, 48, 130),
+                                   (2, 9, 181, 8)])
+def test_k1_world_axis_is_each_world_alone(dev, shape):
+    W, T, B, K = shape
+    pts, mp, mask = _world_inputs(W, T, B, K, 21, dev, width=2 * K + 2)
+    assert not mp.is_contiguous()
+    nact = torch.tensor([0, 1, K // 2 + 3, K][:W], dtype=torch.int32,
+                        device=dev)
+    before = k1.LAUNCHES
+    lab, d2, sums = k1.associate_and_sums(pts, mp, mask, nact, 1.5)
+    assert k1.LAUNCHES == before + 1
+    assert k1.LAUNCH_SHAPES[(W, T, B, K)] >= 1
+    again = k1.associate_and_sums(pts, mp, mask, nact, 1.5)
+    assert all(torch.equal(a, b) for a, b in zip((lab, d2, sums), again))
+    lab_p, d2_p, sums_p = k1.associate_and_sums_plain(pts, mp, mask, nact,
+                                                      1.5)
+    assert torch.equal(lab, lab_p) and torch.equal(d2, d2_p)
+    assert float((sums - sums_p).abs().max()) <= 1e-4
+    for w in range(W):
+        one = k1.associate_and_sums(pts[w], mp[w].contiguous(), mask[w],
+                                    nact[w], 1.5)
+        assert all(torch.equal(a[w], b) for a, b in zip((lab, d2, sums),
+                                                        one))
+
+
+@pytest.mark.parametrize("lanes,threads", VARIANTS)
+@pytest.mark.parametrize("shape", [(4, 33, 48, 1024), (3, 1, 181, 256)])
+def test_k2_world_axis_is_each_world_alone(dev, lanes, threads, shape):
+    W, T, B, L = shape
+    pts, mp, _ = _world_inputs(W, T, B, L, 31, dev, width=L + 6)
+    nact = torch.tensor([0, 1, 37, L][:W - 1] + [L], dtype=torch.int32,
+                        device=dev)
+    plan = k2.plan_for(T * B, L, lanes=lanes, threads=threads)
+    before = k2.LAUNCHES
+    lab, dist = k2.launch(pts, mp, nact, plan)
+    assert k2.LAUNCHES == before + 1
+    assert k2.LAUNCH_SHAPES[(W, T, B, L)] >= 1
+    lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
+    assert torch.equal(lab, lab_p)
+    fin = torch.isfinite(dist_p)
+    assert torch.equal(fin, torch.isfinite(dist))
+    if bool(fin.any()):
+        assert float((dist - dist_p)[fin].abs().max()) <= 1e-5
+    for w in range(W):
+        one = k2.launch(pts[w], mp[w].contiguous(), nact[w], plan)
+        assert torch.equal(lab[w], one[0]) and torch.equal(dist[w], one[1])
+    # the wrapper's own plan, chosen from one world's points
+    lab_w, dist_w = k2.nearest_landmark(pts, mp, nact)
+    assert torch.equal(lab_w, lab_p)
+
+
+@pytest.mark.parametrize("map_run_cap", [256, 0])
+def test_fleet_run_gpu_matches_cpu(dev, map_run_cap):
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver.icm import run_batched
+    # the worlds of tests/test_torch_fleet.py's comparison with JAX
+    worlds = [synthetic_world(T=240, n_landmarks=12, seed=s)
+              for s in (7, 10, 11)]
+    cfg = ICMConfig(L=256, cota=20.0, N=3, map_run_cap=map_run_cap)
+    b1, b2 = k1.LAUNCHES, k2.LAUNCHES
+    gpu = run_batched(worlds, cfg, dev)
+    # one launch a sweep for all three worlds: K1 capped, K2 uncapped
+    assert (k1.LAUNCHES - b1, k2.LAUNCHES - b2) == \
+        ((3, 0) if map_run_cap else (0, 3))
+    cpu = run_batched(worlds, cfg, "cpu")
+    for g, c in zip(gpu, cpu):
+        assert g.map_pos.shape == c.map_pos.shape
+        for f in ("x_init", "x", "map_pos"):
+            np.testing.assert_allclose(getattr(g, f), getattr(c, f),
+                                       atol=1e-3)
+
+
+def test_add_rows_repeats_bitwise(dev):
+    """Rows that share an index are summed in a fixed order on the card
+    (``index_add_`` would add them by float atomics)."""
+    from icm_slam_tpu_torch.mapping.landmark_map import add_rows
+    rng = np.random.default_rng(9)
+    idx = torch.from_numpy(rng.integers(0, 33, 200000)).to(dev)
+    vals = torch.from_numpy(rng.normal(0, 1e3, (200000, 3)).astype(
+        np.float32)).to(dev)
+    first = add_rows(torch.zeros((33, 3), device=dev), idx, vals)
+    for _ in range(3):
+        assert torch.equal(add_rows(torch.zeros((33, 3), device=dev), idx,
+                                    vals), first)
+    # f32 sums of ~6,000 rows each, against f64: within 1e-5 of the mass
+    ref = torch.zeros((33, 3), dtype=torch.float64).index_add_(
+        0, idx.cpu(), vals.cpu().double())
+    mass = torch.zeros((33, 3), dtype=torch.float64).index_add_(
+        0, idx.cpu(), vals.cpu().double().abs())
+    assert bool(((first.cpu().double() - ref).abs() <= 1e-5 * mass).all())
+
+
+def test_runs_repeat_and_a_fleet_world_is_its_run_bitwise(dev):
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver import icm
+    worlds = [synthetic_world(T=240, n_landmarks=12, seed=s)
+              for s in (7, 8, 9)]
+    cfg = ICMConfig(L=256, cota=20.0, N=3)
+    fleet = icm.run_batched(worlds, cfg, dev)
+    merged = icm.resolve_fleet_config(
+        cfg, [icm.prepare(w, cfg, dev) for w in worlds])
+    for w, rb in zip(worlds, fleet):
+        r1, r2 = (icm.run(w, merged, dev) for _ in range(2))
+        for f in ("x_init", "x", "map_pos", "map_counts"):
+            assert np.array_equal(getattr(r1, f), getattr(r2, f))
+            assert np.array_equal(getattr(rb, f), getattr(r1, f))

@@ -1,7 +1,8 @@
 """The port's main path end to end against icm_slam_tpu.solver.icm.run, and
-the port's boundaries: no JAX (and no PyYAML) import, ``models/``
-included, no CPU fallback for a CUDA device, TypeError on a model that is
-not the port's, chip_smoke.py failing without a GPU.
+the port's boundaries: no JAX (and no PyYAML) import, ``models/``, fleet
+mode and the live transport (``runtime/ingest``, ``runtime/
+fake_rosbridge``) included, no CPU fallback for a CUDA device, TypeError
+on a model that is not the port's, chip_smoke.py failing without a GPU.
 
 The world resolves to obs_cap=16, map_run_cap=128 < L=256: the capped
 branch, which JAX runs through its fused association kernel with
@@ -117,6 +118,8 @@ def test_port_imports_no_jax():
         "import icm_slam_tpu_torch.api, icm_slam_tpu_torch.cli\n"
         "import icm_slam_tpu_torch.runtime.online\n"
         "import icm_slam_tpu_torch.runtime.replay\n"
+        "import icm_slam_tpu_torch.runtime.ingest\n"
+        "import icm_slam_tpu_torch.runtime.fake_rosbridge\n"
         "import icm_slam_tpu_torch.utils.checkpoint\n"
         "import icm_slam_tpu_torch.utils.export\n"
         "import icm_slam_tpu_torch.utils.metrics\n"
@@ -132,6 +135,10 @@ def test_port_imports_no_jax():
         " or m.split('.')[0] == 'icm_slam_tpu']\n"
         "assert not bad, bad\n"
         "assert 'icm_slam_tpu_torch.models.loop_closure' in sys.modules\n"
+        "assert 'icm_slam_tpu_torch.runtime.ingest' in sys.modules\n"
+        "from icm_slam_tpu_torch.solver.icm import run_batched\n"
+        "from icm_slam_tpu_torch.api import run_batched as api_rb\n"
+        "assert api_rb is run_batched\n"
         "print('ok', len([m for m in sys.modules"
         " if m.startswith('icm_slam_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

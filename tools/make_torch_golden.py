@@ -60,6 +60,21 @@ interpret mode off the TPU, ~20 s):
   ``--pallas-fused``): the printed closure count, the census and the
   poses (~15 s).
 
+``torch_fleet_synth.npz`` (JAX ``run_batched``, fleet mode, with
+``use_pallas_fused_assoc=True``, ~80 s): each case a fleet of worlds,
+its fields under ``<prefix>_w<i>_`` per world and the merged caps under
+``<prefix>_``:
+
+* ``slice3_`` — ``synthetic_world(T=240, n_landmarks=12, seed=s)`` for s
+  in 7, 10, 11 (the worlds of tests/test_torch_fleet.py), L=256, cota=20,
+  N=3: merged to the capped branch (cap 128);
+* ``fleet3_`` — the three worlds of tests/test_fleet.py
+  (``synthetic_world(T=300, n_landmarks=25, seed=s)``, s = 0, 1, 2),
+  L=256, cota=10, N=4: merged to the uncapped branch;
+* ``big2_`` — ``synthetic_world(T=1833, seed=s)`` for s in 0, 1 with
+  ``ICMConfig()`` (N=30, L=1024): worlds 0 and 1 of the port's fleet
+  curve at W=2.
+
 The files hold outputs only — poses, map, census, map changes, the
 resolved caps, the ATE against the world's truth — plus a checksum of
 each world, which the reader must reproduce before it compares anything.
@@ -102,6 +117,13 @@ GOLDENS = {
          "seq1": (_BIG, dict(sweep_mode="sequential", N=1)),
          "nqj": (_BIG, dict(replicate_new_obs_quirk=False,
                             pose_update="jacobi", N=3, L=2048))}),
+    "torch_fleet_synth.npz": (
+        dict(use_pallas_fused_assoc=True),
+        {"slice3": ([dict(T=240, n_landmarks=12, seed=s) for s in (7, 10, 11)],
+                    dict(L=256, cota=20.0, N=3)),
+         "fleet3": ([dict(T=300, n_landmarks=25, seed=s) for s in (0, 1, 2)],
+                    dict(L=256, cota=10.0, N=4)),
+         "big2": ([dict(T=1833, seed=s) for s in (0, 1)], dict(N=30))}),
     "torch_models_synth.npz": (
         dict(use_pallas_fused_assoc=True),
         {"hooks": (_BIG, dict(N=3, init_mode="batched", model="hooks")),
@@ -286,6 +308,34 @@ def make_case(world_kw, cfg_kw, common):
     return fields
 
 
+def make_fleet_case(worlds_kw, cfg_kw, common):
+    """JAX ``run_batched`` on the worlds of ``worlds_kw``: per world the
+    fields of ``make_case`` (no map changes: a fleet keeps none) under
+    ``w<i>_``, and the merged caps."""
+    from icm_slam_tpu.config import ICMConfig
+    from icm_slam_tpu.solver.icm import (prepare, resolve_fleet_config,
+                                         run_batched)
+    from icm_slam_tpu_torch.data.datasets import world_checksum
+    worlds = [_world(kw) for kw in worlds_kw]
+    datasets = [ds for ds, _, _ in worlds]
+    cfg = ICMConfig(**cfg_kw, **common)
+    merged = resolve_fleet_config(cfg, [prepare(ds, cfg) for ds in datasets])
+    t0 = time.time()
+    results = run_batched(datasets, cfg)
+    dt = time.time() - t0
+    fields = dict(obs_cap=merged.obs_cap, map_run_cap=merged.map_run_cap,
+                  worlds=json.dumps(worlds_kw), wall_seconds=dt,
+                  census=np.array([r.map_pos.shape[0] for r in results]))
+    for i, ((ds, x_true, _), res) in enumerate(zip(worlds, results)):
+        ate = float(np.sqrt(((res.x[:, :2] - x_true[:, :2]) ** 2)
+                            .sum(1).mean()))
+        fields.update({f"w{i}_{k}": v for k, v in dict(
+            world_checksum=world_checksum(ds), x_init=res.x_init, x=res.x,
+            map_pos=res.map_pos, map_counts=res.map_counts,
+            census=res.map_pos.shape[0], ate_rmse=ate).items()})
+    return fields
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("names", nargs="*", choices=list(GOLDENS),
@@ -310,8 +360,12 @@ def main():
         for prefix, (world_kw, cfg_kw) in cases.items():
             if args.only is not None and prefix not in args.only:
                 continue
-            fields = (make_cli_case(cfg_kw) if world_kw is None
-                      else make_case(world_kw, cfg_kw, common))
+            if world_kw is None:
+                fields = make_cli_case(cfg_kw)
+            elif isinstance(world_kw, list):
+                fields = make_fleet_case(world_kw, cfg_kw, common)
+            else:
+                fields = make_case(world_kw, cfg_kw, common)
             out.update({f"{prefix}_{k}": v for k, v in fields.items()})
             print(f"{name} {prefix}: {fields['wall_seconds']:.1f}s, "
                   + ", ".join(f"{k}={fields[k]}" for k in (
