@@ -45,7 +45,7 @@ nonzero and the final line is not printed:
    exact, ATE within 10%; K2 launched exactly (T-1) + N*T times (once per
    frame through ``landmark_map.update``), K1 never; its init and sweep
    times; launches and host syncs of one sequential sweep over the
-   world's first 16 frames;
+   world's first 8 frames (16 until PR 6);
 9. the non-quirk Jacobi engine: ``ICMConfig(replicate_new_obs_quirk=
    False, pose_update="jacobi", N=3, L=2048)`` (the causal init, then
    batched sweeps with connected-component labels; at L=1024 the first
@@ -59,10 +59,10 @@ nonzero and the final line is not printed:
 11. the entry points: ``api.run_offline`` with checkpoints (N=6, every 2)
    and a resume after deleting the last two checkpoints (census equal,
    poses atol 1e-3: the card's scatters add in no fixed order);
-   ``api.run_online`` over ``stream_dataset`` of the world's first 600
+   ``api.run_online`` over ``stream_dataset`` of the world's first 400
    frames with the sequential init against the offline causal init from
    the same first pose (census equal, x_init atol 1e-3; the whole world
-   until PR 5); ``python -m icm_slam_tpu_torch run`` and
+   until PR 5, 600 frames in PR 5); ``python -m icm_slam_tpu_torch run`` and
    ``replay`` as subprocesses on the card, each file they write checked;
 12. the kernel table: the card's launch floor, then for every shape a
    path above gave a kernel (KERNEL_SHAPES; the runs' launches are
@@ -141,10 +141,38 @@ nonzero and the final line is not printed:
    SetBool service: its file against ``api.run_online`` over the same
    frames (census equal, x_init within 1e-3); the synchronizer's stats.
 
+20. fleet mode in every configuration (``run_batched`` with the world axis
+   through the causal engines and ``models/``): (a) K2 at the per-frame
+   fleet shapes (4, 1, 181, 1024), (4, 1, 104, 2048), (4, 1, 104, 1024) and
+   the small fleets' (3, 1, 181, 256), (3, 1, 16, 256), at the sweep shapes
+   (4, 400, 104, 128 of 2048) and (3, 120, 16, 256), K1 at (4, 1833, 104,
+   128) and (4, 400, 104, 128 of 1024), another live count in every world:
+   against their plain versions (labels exact, distances within 1e-5) and
+   each world bitwise its launch alone; (b) the small fleets of
+   ``synthetic_world(T=120, n_landmarks=10, seed=s)``, s = 7, 10, 11, in
+   six configurations (hooks on the batched init, ``ba``, ``windowed_ba``,
+   non-quirk labels, ``init_mode="sequential"``, ``sweep_mode=
+   "sequential"``) against JAX's ``run_batched`` (tests/golden/
+   torch_fleet_modes_synth.npz): census exact, poses and map within 1e-3
+   (the one cell JAX's own rounding moves past it: census and ATE); (c)
+   the same six at W=4 at full width: hooks, ``ba``, ``windowed_ba`` (N=3)
+   on ``synthetic_world(T=1833, seed=s)``, s < 4, the causal-init ones
+   (non-quirk Jacobi at L=2048, ``init_mode="sequential"`` (N=3),
+   ``sweep_mode="sequential"`` (N=1)) on their first 400 frames: launches
+   exact (K2 T - 1 times for a causal init and T times for a sequential
+   sweep, whatever W), worlds 0 and 3 (causal: world 0) against
+   ``run()`` with the merged config (census equal, ATE within 10%), the
+   init's and a sweep's time against world 0's ``run()`` (W = 1),
+   launches and host syncs of a sweep (``ba``: one GN step; sequential: 4
+   frames) and of the init's first 4 frames at W=4 against W=1 (within
+   5%, the same syncs); (d) phases 15-16's runs, phase 17's ``close_loops``
+   and the ``ba`` fleet a second time: bitwise the first (the models'
+   sums add in a fixed order, ``landmark_map.add_rows``).
+
 ``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
 package under ROOT (what each of those turns runs).
 
-Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18) counts the
+Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20) counts the
 kernel launches with the counters set to 0 just before it and read just
 after; the kernels' JSON line sums them.  A ``wall_seconds`` line gives
 each phase's seconds (standard error has each as it ends).  Then the
@@ -170,9 +198,9 @@ GOLDEN_MODELS = os.path.join(HERE, "tests", "golden",
 # committed)
 WORK = os.path.join(HERE, "build", "chip_smoke")
 # frames of the T=1833 world that phase 11 streams through run_online and
-# the offline causal init it is held to (the whole world until PR 5; cut
-# to keep the script's time as phases 18-19 joined)
-ONLINE_FRAMES = 600
+# the offline causal init it is held to (the whole world until PR 5, 600
+# frames in PR 5; cut to keep the script's time as phases 18-20 joined)
+ONLINE_FRAMES = 400
 
 
 def emit(**kw):
@@ -313,8 +341,14 @@ def shape_bound_us(kind, shape, nact):
 # beams at L=1024, compacted beams at L=2048 and, on the small world, at
 # L=256); then the fleets of phase 18, (W, T, B, K), B the widest beam
 # cap of the fleet's worlds: K1 on the fleet curve's capped sweeps at
-# W = 2, 4, 8 and on the small capped fleet, K2 on the uncapped fleet of
-# four and on the small uncapped fleet
+# W = 2, 4, 8 (and phase 20's hooks and BA fleets at W = 4) and on the
+# small capped fleet, K2 on the uncapped fleet of four and on the small
+# uncapped fleet; then phase 20's: K2 once a frame for all worlds of the
+# causal fleets (the sequential one on all 181 beams at L=1024, the
+# non-quirk and the init_mode="sequential" ones on 104 compacted beams at
+# L=2048 and 1024), K2 on the non-quirk fleet's sweeps (the first 128
+# columns of 2048), K1 on the causal-init fleet's capped sweeps, and the
+# small fleets' K2 (per frame on 181 and 16 beams, per sweep uncapped)
 KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k2", (1833, 48, 128), 7), ("k2", (1, 181, 1024), 3),
                  ("k2", (1, 48, 2048), 8), ("k1", (240, 16, 128), 14),
@@ -324,7 +358,15 @@ KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k1", (8, 1833, 152, 128), 40),
                  ("k2", (4, 1833, 104, 1024), 50),
                  ("k1", (3, 240, 48, 128), 60),
-                 ("k2", (3, 300, 136, 256), 70))
+                 ("k2", (3, 300, 136, 256), 70),
+                 ("k2", (4, 1, 181, 1024), 80),
+                 ("k2", (4, 1, 104, 2048), 84),
+                 ("k2", (4, 1, 104, 1024), 88),
+                 ("k2", (4, 400, 104, 128), 92),
+                 ("k1", (4, 400, 104, 128), 96),
+                 ("k2", (3, 1, 181, 256), 100),
+                 ("k2", (3, 1, 16, 256), 104),
+                 ("k2", (3, 120, 16, 256), 108))
 # tables whose first K columns a kernel searches, as the paths pass them:
 # the non-quirk sweep's K2, and a fleet's K1 (the first map_run_cap
 # columns of each world's L)
@@ -332,7 +374,9 @@ TABLE_WIDTH = {("k2", (1833, 48, 128)): 2048,
                ("k1", (2, 1833, 96, 128)): 1024,
                ("k1", (4, 1833, 104, 128)): 1024,
                ("k1", (8, 1833, 152, 128)): 1024,
-               ("k1", (3, 240, 48, 128)): 256}
+               ("k1", (3, 240, 48, 128)): 256,
+               ("k2", (4, 400, 104, 128)): 2048,
+               ("k1", (4, 400, 104, 128)): 1024}
 KERNEL_NAME_PART = {"k1": "assoc_sums", "k2": "nearest_landmark"}
 
 
@@ -985,9 +1029,9 @@ def phase_sequential(ge, smi):
          init_frames_per_s=(T - 1) / t["init_s"],
          refine_frames_per_s=T / t["refine_per_iter_s"], card=smi)
 
-    # one sequential sweep (+ map filter) over the first 16 frames, from
+    # one sequential sweep (+ map filter) over the first 8 frames, from
     # the run's map and poses: launches per frame, host syncs per sweep
-    F = 16
+    F = 8
     data = icm.prepare(ds.slice(F), cfg, "cuda")
     rcfg = icm.resolve_config(cfg, data)
     w = weights(rcfg, "cuda")
@@ -997,7 +1041,7 @@ def phase_sequential(ge, smi):
     prof = launches_and_syncs(lambda: icm._refine_step(data, cur, x, rcfg, w))
     emit(phase="sequential_sweep_profile", frames=F,
          kernel_launches_per_frame=prof["kernel_launches"] / F, **prof,
-         note="one sequential sweep + map filter over frames 0-15 of the "
+         note="one sequential sweep + map filter over frames 0-7 of the "
               "T=1833 world, after one warm sweep", card=smi)
     return n, res
 
@@ -1390,7 +1434,9 @@ def phase_ba(gm, smi, mode):
 
 def phase_loop_closure(gm, smi):
     """close_loops on JAX's ICM trajectory of the loop-closure benchmark's
-    world, then the CLI's --loop-close as a user runs it."""
+    world, then the CLI's --loop-close as a user runs it.  Returns the
+    call's inputs and its closed poses (data, x, config, arguments,
+    closed), for phase 20 (d)."""
     import json as _json
     import numpy as np
     import torch
@@ -1412,8 +1458,8 @@ def phase_loop_closure(gm, smi):
     report = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x, cl = close_loops(data, torch.from_numpy(gc["x"]).cuda(), rcfg,
-                        report=report, **kwargs)
+    x_icm = torch.from_numpy(gc["x"]).cuda()
+    x, cl = close_loops(data, x_icm, rcfg, report=report, **kwargs)
     x = x.cpu().numpy()
     close_s = time.perf_counter() - t0
     rows = report["rounds"]
@@ -1471,6 +1517,7 @@ def phase_loop_closure(gm, smi):
     emit(phase="loop_closure", world="drifted_world(T=2000, "
          "n_landmarks=150, world_size=50, seed=3, w_bias=0.001, laps=2)",
          close_loops_kwargs=kwargs, **out, card=smi)
+    return data, x_icm, rcfg, kwargs, x
 
 
 GOLDEN_FLEET = os.path.join(HERE, "tests", "golden", "torch_fleet_synth.npz")
@@ -1937,6 +1984,327 @@ def phase_online(smi):
          card=smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: fleet mode in every configuration
+# ---------------------------------------------------------------------------
+
+GOLDEN_MODES = os.path.join(HERE, "tests", "golden",
+                            "torch_fleet_modes_synth.npz")
+MODE_SEEDS = (7, 10, 11)
+# (mode, world) of the small fleets whose poses JAX's own rounding moves
+# past the 1e-3 band (tests/test_torch_fleet_modes.py): census and ATE
+MODE_SENSITIVE = {("ba", 1)}
+# frames of the full-width worlds that the causal-init modes run (400 of
+# the 1,833: the script's time limit)
+CAUSAL_FRAMES = 400
+# the full-width fleets of phase 20 (c): the batched-shaped modes on the
+# T=1833 worlds, the causal ones on their first CAUSAL_FRAMES frames
+FULL_MODES = ("hooks", "ba", "wba", "nq", "iseq", "seq")
+
+
+def mode_config(mode, full=False):
+    """ICMConfig of a phase-20 fleet: the small fleets' (golden
+    torch_fleet_modes_synth.npz, N=2, L=256, cota=5) or, ``full``, the
+    full-width one (N=3; the non-quirk Jacobi run at L=2048 as phase 9,
+    the sequential sweep N=1 as phase 8)."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    kw = {"hooks": dict(init_mode="batched", model=hooks_model()),
+          "ba": dict(sweep_mode="ba"),
+          "wba": dict(sweep_mode="windowed_ba",
+                      ba_window=64 if full else 32),
+          "nq": dict(replicate_new_obs_quirk=False),
+          "iseq": dict(init_mode="sequential"),
+          "seq": dict(sweep_mode="sequential")}[mode]
+    if not full:
+        return ICMConfig(N=2, L=256, cota=5.0, **kw)
+    if mode == "nq":
+        kw.update(pose_update="jacobi", L=2048)
+    return ICMConfig(N=1 if mode == "seq" else 3, **kw)
+
+
+def fleet_checked(dss, cfg, mode, what):
+    """``run_batched`` of the worlds ``dss`` in ``mode``, its launches
+    counted and checked: the causal init launches K2 once a frame (T - 1
+    for all W worlds, not W (T - 1)), a sequential sweep once a frame (T),
+    a batched sweep or BA step K1 once (capped) or K2 once (uncapped, or
+    the non-quirk components).  Returns (results, counts, merged config)."""
+    from icm_slam_tpu_torch.solver import icm
+    merged = icm.resolve_fleet_config(
+        cfg, [icm.prepare(ds, cfg, "cuda") for ds in dss])
+    T = dss[0].T
+    causal = T - 1 if not icm.use_batched_init(merged) else 0
+    if mode == "seq":
+        want = (0, causal + merged.N * T)
+    elif merged.replicate_new_obs_quirk and 0 < merged.map_run_cap < merged.L:
+        want = (merged.N, causal)
+    else:
+        want = (0, causal + merged.N)
+    res, n = counted(lambda: icm.run_batched(dss, cfg, "cuda"))
+    check((n["k1"], n["k2"]) == want,
+          f"{what}: launched K1 {n['k1']}x, K2 {n['k2']}x; want {want}")
+    return res, n, merged
+
+
+def phase_modes_kernels():
+    """20 (a): K2 at the per-frame shapes of the causal fleets and at the
+    non-quirk fleet's sweep, K1 at the hooks / BA fleets' and the
+    causal-init fleet's sweeps, with a world axis, against their plain
+    versions and world by world against the launch alone."""
+    err2 = max(hold_k2_worlds(shape, (0, 1, 517, shape[-1])[-shape[0]:])
+               for shape in ((4, 1, 181, 1024), (4, 1, 104, 2048),
+                             (4, 1, 104, 1024), (4, 400, 104, 128),
+                             (3, 1, 181, 256), (3, 1, 16, 256),
+                             (3, 120, 16, 256)))
+    err1 = max(hold_k1_worlds(shape, (0, 7, 100, 128))
+               for shape in ((4, 1833, 104, 128), (4, 400, 104, 128)))
+    emit(phase="fleet_modes_kernels_vs_plain",
+         k2_shapes=[[4, 1, 181, 1024], [4, 1, 104, 2048], [4, 1, 104, 1024],
+                    [4, 400, 104, 128], [3, 1, 181, 256], [3, 1, 16, 256],
+                    [3, 120, 16, 256]],
+         k1_shapes=[[4, 1833, 104, 128], [4, 400, 104, 128]],
+         labels="exact", k2_distances="within 1e-5 of plain",
+         k1_sums="within 1e-4, bitwise run to run",
+         each_world_vs_alone="bitwise", k2_dist_max_abs_err=err2,
+         k1_sums_max_abs_err=err1)
+    return dict(k1=err1, k2=err2)
+
+
+def phase_modes_small(gmo):
+    """20 (b): the small fleets of every configuration against JAX's
+    run_batched (tests/golden/torch_fleet_modes_synth.npz): census exact,
+    x_init, x and the map within 1e-3 (a cell JAX's own rounding moves
+    past the band: census, ATE within 10%); the launches counted."""
+    import numpy as np
+    from icm_slam_tpu_torch.data.datasets import (synthetic_world,
+                                                  world_checksum)
+    worlds = [synthetic_world(T=120, n_landmarks=10, seed=s,
+                              return_truth=True)[:2] for s in MODE_SEEDS]
+    for i, (ds, _) in enumerate(worlds):
+        check(world_checksum(ds) == str(gmo[f"hooks_w{i}_world_checksum"]),
+              f"small mode fleet: world {i} differs from the golden's")
+    launches, nacts, out = {}, {}, {}
+    for mode in FULL_MODES:
+        res, n, _ = fleet_checked([w[0] for w in worlds], mode_config(mode),
+                                  mode, f"small {mode} fleet")
+        errs = {}
+        for i, (r, (_, x_true)) in enumerate(zip(res, worlds)):
+            census = int(gmo[f"{mode}_census"][i])
+            check(r.map_pos.shape[0] == census and np.array_equal(
+                r.map_counts, gmo[f"{mode}_w{i}_map_counts"]),
+                f"small {mode} fleet world {i}: census "
+                f"{r.map_pos.shape[0]} != JAX's {census}")
+            for k in ("x_init", "x", "map_pos"):
+                e = float(np.abs(getattr(r, k) - gmo[f"{mode}_w{i}_{k}"])
+                          .max())
+                if k == "x" and (mode, i) in MODE_SENSITIVE:
+                    ate = ate_rmse(r.x, x_true)
+                    ate_jax = float(gmo[f"{mode}_w{i}_ate_rmse"])
+                    check(abs(ate - ate_jax) <= 0.1 * ate_jax,
+                          f"small {mode} fleet world {i}: ATE {ate} not "
+                          f"within 10% of JAX's {ate_jax}")
+                    errs["x_sensitive_world"] = e
+                    continue
+                check(e <= 1e-3, f"small {mode} fleet world {i}: {k} "
+                                 f"differs from JAX by {e}")
+                errs[k] = max(errs.get(k, 0.0), e)
+        out[mode] = dict(census=[r.map_pos.shape[0] for r in res],
+                         k1_launches=n["k1"], k2_launches=n["k2"],
+                         max_abs_diff_vs_jax=errs)
+        launches[f"modes_small_{mode}"] = n
+        for key in n["shapes"]:
+            nacts[key] = out[mode]["census"]
+    emit(phase="fleet_modes_small_vs_jax", worlds="synthetic_world(T=120, "
+         "n_landmarks=10, seed=s), s = 7, 10, 11", config="ICMConfig(N=2, "
+         "L=256, cota=5) + the mode", tolerance=1e-3, **out)
+    return launches, nacts
+
+
+def fleet_state(res, L):
+    """A fleet's results as (maps (W, L, 2) ..., poses (W, T, 3)) on the
+    card, to profile a sweep from."""
+    import torch
+    maps = [map_state(r, L) for r in res]
+    x = torch.stack([torch.from_numpy(r.x) for r in res]).cuda()
+    return type(maps[0])(*(torch.stack(f) for f in zip(*maps))), x
+
+
+def head(data, F):
+    """The first ``F`` frames of a (fleet's) SweepData."""
+    return data._replace(dist=data.dist[..., :F, :],
+                         mask=data.mask[..., :F, :],
+                         odom=data.odom[..., :F, :], u=data.u[..., :F, :],
+                         ang=data.ang if data.ang.dim() < data.dist.dim()
+                         else data.ang[..., :F, :])
+
+
+def mode_profiles(mode, dss, merged, res, solo0, F=4):
+    """Launches and host syncs of the fleet's work against one world's
+    (W = 1: world 0 under the merged config, from ``run()``'s state): one
+    refine sweep (+ map filter) from the runs' final states (a sequential
+    sweep on the first ``F`` frames; a ``ba`` sweep of one GN step), and
+    for the causal-init modes the init over the first ``F`` frames (the
+    profiler's summary took ~0.75 ms a launch on the NVIDIA H100 80GB
+    HBM3 machine at 700 W, and every frame or GN step issues the same
+    work)."""
+    import dataclasses
+    import torch
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.solver import icm
+    from icm_slam_tpu_torch.solver.sweeps import init_sweep
+    w = weights(merged, "cuda")
+    W = len(dss)
+    data_w, seed_w, x0_w, _, _ = icm.prepare_fleet(dss, merged, "cuda")
+    data_1 = icm.prepare(dss[0], merged, "cuda")
+    x0_1 = torch.as_tensor(dss[0].x0, device="cuda").float()
+    seed_1 = icm.seed_map(data_1, x0_1, merged)
+    out = {}
+    if not icm.use_batched_init(merged):
+        out["init"] = {
+            1: launches_and_syncs(lambda: init_sweep(
+                head(data_1, F), seed_1, x0_1, merged, w)),
+            W: launches_and_syncs(lambda: init_sweep(
+                head(data_w, F), seed_w, x0_w, merged, w))}
+    cur_w, x_w = fleet_state(res, merged.L)
+    cur_1, x_1 = map_state(solo0, merged.L), torch.from_numpy(
+        solo0.x).cuda()
+    if mode == "seq":
+        data_1, data_w = head(data_1, F), head(data_w, F)
+        x_1, x_w = x_1[:F], x_w[:, :F]
+    data_1 = icm.hoist_compaction(data_1, merged)
+    data_w = icm.hoist_compaction(data_w, merged)
+    if mode == "ba":
+        merged = dataclasses.replace(merged, ba_gn_iters=1)
+    icm._refine_step(data_w, cur_w, x_w, merged, w)
+    out["sweep"] = {
+        1: launches_and_syncs(lambda: icm._refine_step(data_1, cur_1, x_1,
+                                                       merged, w)),
+        W: launches_and_syncs(lambda: icm._refine_step(data_w, cur_w, x_w,
+                                                       merged, w))}
+    rows = {}
+    for part, prof in out.items():
+        a, b = prof[1]["kernel_launches"], prof[W]["kernel_launches"]
+        check(abs(b - a) <= 0.05 * a,
+              f"{mode} fleet {part}: {b} launches at W={W} against {a} at "
+              f"W=1 (more than 5% apart)")
+        check(prof[1]["host_syncs"] == prof[W]["host_syncs"],
+              f"{mode} fleet {part}: host syncs {prof[1]['sync_sites']} at "
+              f"W=1 against {prof[W]['sync_sites']} at W={W}")
+        frames = F if part == "init" or mode == "seq" else 1
+        rows[part] = dict(
+            frames=frames if part == "init" or mode == "seq" else "sweep",
+            launches_w1=a, launches_w=b, host_syncs_w1=prof[1]["host_syncs"],
+            host_syncs_w=prof[W]["host_syncs"],
+            launches_per_frame_w1=a / frames, launches_per_frame_w=b / frames,
+            device_busy_ms_w1=prof[1]["device_busy_ms"],
+            device_busy_ms_w=prof[W]["device_busy_ms"],
+            top_kernels_w=prof[W]["top_kernels_ms_count"])
+    return rows
+
+
+def phase_modes_full(smi):
+    """20 (c): every configuration at W=4 at full width: the batched-shaped
+    modes on the T=1833 worlds 0-3 (N=3), the causal-init modes on their
+    first CAUSAL_FRAMES frames (181 beams).  Each fleet's launches exact
+    (``fleet_checked``); worlds 0 and 3 (the causal ones: world 0, to keep
+    the script's time) against ``run()`` of that world under the merged
+    config (census equal, ATE within 10%); the fleet's
+    init and sweep times against world 0's ``run()`` (W=1); launches and
+    host syncs of a sweep and of the init's first frames at W=4 against
+    W=1 (within 5%, the same syncs).  Returns the launches, the live
+    counts per shape and the ``ba`` fleet's results (for 20 (d))."""
+    import numpy as np
+    from icm_slam_tpu_torch.solver import icm
+    worlds = fleet_worlds()[:4]
+    launches, nacts, kept = {}, {}, {}
+    for mode in FULL_MODES:
+        dss = [ds if mode in ("hooks", "ba", "wba")
+               else ds.slice(CAUSAL_FRAMES) for ds, _ in worlds]
+        frames = dss[0].T
+        cfg = mode_config(mode, full=True)
+        res, n, merged = fleet_checked(dss, cfg, mode, f"W=4 {mode} fleet")
+        for r in res:
+            check(np.isfinite(r.x).all() and np.isfinite(r.map_pos).all()
+                  and r.x.shape == (frames, 3), f"W=4 {mode} fleet: bad "
+                                                f"output")
+        solo = {i: icm.run(dss[i], merged, "cuda")
+                for i in ((0, 3) if frames > CAUSAL_FRAMES else (0,))}
+        vs_run = []
+        for i, r1 in solo.items():
+            x_true = worlds[i][1][:frames]
+            ate, ate_run = ate_rmse(res[i].x, x_true), ate_rmse(r1.x, x_true)
+            check(res[i].map_pos.shape == r1.map_pos.shape,
+                  f"W=4 {mode} world {i}: census {res[i].map_pos.shape[0]} "
+                  f"!= run()'s {r1.map_pos.shape[0]}")
+            check(abs(ate - ate_run) <= 0.1 * ate_run,
+                  f"W=4 {mode} world {i}: ATE {ate} not within 10% of "
+                  f"run()'s {ate_run}")
+            vs_run.append(dict(world=i, census=r1.map_pos.shape[0],
+                               ate_rmse_fleet=ate, ate_rmse_run=ate_run,
+                               x_max_abs_diff=float(np.abs(
+                                   res[i].x - r1.x).max())))
+        t, t1 = res[0].timings, solo[0].timings
+        prof = mode_profiles(mode, dss, merged, res, solo[0])
+        emit(phase="fleet_mode_full", mode=mode, W=4, frames=frames,
+             config=repr({k: v for k, v in vars(cfg).items()
+                          if k in ("N", "L", "sweep_mode", "init_mode",
+                                   "replicate_new_obs_quirk", "pose_update",
+                                   "ba_window")}),
+             obs_cap=merged.obs_cap, map_run_cap=merged.map_run_cap,
+             k1_launches=n["k1"], k2_launches=n["k2"],
+             census=[r.map_pos.shape[0] for r in res], vs_run_merged=vs_run,
+             init_s=t["init_s"], init_s_w1=t1["init_s"],
+             init_ratio=t["init_s"] / t1["init_s"],
+             refine_per_iter_s=t["refine_per_iter_s"],
+             refine_per_iter_s_w1=t1["refine_per_iter_s"],
+             refine_ratio=t["refine_per_iter_s"] / t1["refine_per_iter_s"],
+             aggregate_refine_frames_per_s=4 * frames
+             / t["refine_per_iter_s"],
+             aggregate_init_frames_per_s=4 * (frames - 1) / t["init_s"],
+             profiles=prof, card=smi)
+        launches[f"modes_{mode}"] = n
+        for key in n["shapes"]:
+            nacts[key] = [r.map_pos.shape[0] for r in res]
+        if mode == "ba":
+            kept = dict(dss=dss, cfg=cfg, res=res)
+    return launches, nacts, kept
+
+
+def phase_repeatable(ba_fleet, runs, closed):
+    """20 (d): the models' sums add in a fixed order on the card, so a
+    second run of phases 15-16 (``run()`` with ``sweep_mode`` ``ba`` and
+    ``windowed_ba``), of phase 17's ``close_loops`` and of the ``ba``
+    fleet gives the same bits as the first."""
+    import numpy as np
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.models.loop_closure import close_loops
+    from icm_slam_tpu_torch.solver import icm
+    ds, _ = world_1833()
+    out = {}
+    for mode, first in runs.items():
+        again = icm.run(ds, ICMConfig(N=3, sweep_mode=mode), "cuda")
+        same = all(np.array_equal(getattr(again, f), getattr(first, f))
+                   for f in ("x_init", "x", "map_pos", "map_counts"))
+        check(same, f"{mode} run twice: poses "
+                    f"{float(np.abs(again.x - first.x).max())} apart")
+        out[mode] = "bitwise"
+    data, x_icm, rcfg, kwargs, x_first = closed
+    x_again, _ = close_loops(data, x_icm, rcfg, report={}, **kwargs)
+    dx = float(np.abs(x_again.cpu().numpy() - x_first).max())
+    check(dx == 0.0, f"close_loops twice: poses {dx} apart")
+    out["loop_closure"] = "bitwise"
+    again = icm.run_batched(ba_fleet["dss"], ba_fleet["cfg"], "cuda")
+    for i, (a, b) in enumerate(zip(again, ba_fleet["res"])):
+        check(np.array_equal(a.x, b.x) and np.array_equal(a.map_pos,
+                                                          b.map_pos),
+              f"ba fleet twice: world {i} poses "
+              f"{float(np.abs(a.x - b.x).max())} apart")
+    out["ba_fleet_w4"] = "bitwise"
+    torch.cuda.synchronize()
+    emit(phase="models_repeatable", **out,
+         note="a second run against the first on the same card, bitwise")
+
+
 PARENT_ROOT = os.path.join(HERE, "build", "parent")
 
 
@@ -2009,7 +2377,29 @@ LAUNCHED_BY = {
     ("k1", (3, 240, 48, 128)): ("fleet_small",
                                 "the small capped fleet, N=3 (phase 18)"),
     ("k2", (3, 300, 136, 256)): ("fleet_small",
-                                 "the small uncapped fleet, N=4 (phase 18)")}
+                                 "the small uncapped fleet, N=4 (phase 18)"),
+    ("k2", (4, 1, 181, 1024)): ("modes_seq",
+                                "the W=4 sequential fleet, 400 frames, N=1 "
+                                "(phase 20)"),
+    ("k2", (4, 1, 104, 2048)): ("modes_nq",
+                                "the W=4 non-quirk Jacobi fleet's causal "
+                                "init, 400 frames (phase 20)"),
+    ("k2", (4, 1, 104, 1024)): ("modes_iseq",
+                                "the W=4 init_mode='sequential' fleet's "
+                                "causal init, 400 frames (phase 20)"),
+    ("k2", (4, 400, 104, 128)): ("modes_nq",
+                                 "the W=4 non-quirk Jacobi fleet's sweeps, "
+                                 "N=3 (phase 20)"),
+    ("k1", (4, 400, 104, 128)): ("modes_iseq",
+                                 "the W=4 init_mode='sequential' fleet's "
+                                 "sweeps, N=3 (phase 20)"),
+    ("k2", (3, 1, 181, 256)): ("modes_small_seq",
+                               "the small sequential fleet, N=2 (phase 20)"),
+    ("k2", (3, 1, 16, 256)): ("modes_small_nq",
+                              "the small non-quirk fleet's causal init "
+                              "(phase 20)"),
+    ("k2", (3, 120, 16, 256)): ("modes_small_ba",
+                                "the small ba fleet, N=2 (phase 20)")}
 
 
 def check_shapes_covered(launches):
@@ -2126,9 +2516,9 @@ def main():
     n13, _ = timed("hooks_batched", phase_hooks_batched, gm, smi)
     n14, hc_res = timed("hooks_causal", phase_hooks_causal, gm, smi)
     nacts["k2"].append(hc_res.map_pos.shape[0])
-    n15, _ = timed("ba", phase_ba, gm, smi, "ba")
-    n16, _ = timed("windowed_ba", phase_ba, gm, smi, "windowed_ba")
-    timed("loop_closure", phase_loop_closure, gm, smi)
+    n15, ba_res = timed("ba", phase_ba, gm, smi, "ba")
+    n16, wba_res = timed("windowed_ba", phase_ba, gm, smi, "windowed_ba")
+    closed = timed("loop_closure", phase_loop_closure, gm, smi)
     launches.update(sequential=n8, nonquirk=n9, entry_points=n11,
                     hooks_batched=n13, hooks_causal=n14, ba=n15,
                     windowed_ba=n16)
@@ -2147,6 +2537,19 @@ def main():
             nacts[key] = sorted({min(counts), max(counts)})
     emit(phase="fleet_wall_seconds", seconds=time.perf_counter() - t18)
     timed("online", phase_online, smi)
+    t20 = time.perf_counter()
+    fmk = timed("fleet_modes_kernels", phase_modes_kernels)
+    n20b, nacts20b = timed("fleet_modes_small", phase_modes_small,
+                           np.load(GOLDEN_MODES))
+    n20c, nacts20c, ba_fleet = timed("fleet_modes_full", phase_modes_full,
+                                     smi)
+    timed("models_repeatable", phase_repeatable, ba_fleet,
+          {"ba": ba_res, "windowed_ba": wba_res}, closed)
+    launches.update(**n20b, **n20c)
+    for key, counts in {**nacts20b, **nacts20c}.items():
+        if len(key[1]) == 4:
+            nacts[key] = sorted({min(counts), max(counts)})
+    emit(phase="fleet_modes_wall_seconds", seconds=time.perf_counter() - t20)
     check_shapes_covered(launches)
     emit(phase="launches_by_shape", **{
         run: {f"{kind} {list(shape)}": c
@@ -2158,8 +2561,8 @@ def main():
     launches["all"] = {k: sum(n[k] for n in launches.values())
                        for k in ("k1", "k2")}
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"],
-                            fk["k2"])
-    k1["max_abs_err"] = max(k1["max_abs_err"], fk["k1"])
+                            fk["k2"], fmk["k2"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], fk["k1"], fmk["k1"])
 
     print(json.dumps({"kernels": kernels_line(
         launches, {"k1": k1, "k2": k2}, rows)}), flush=True)

@@ -85,18 +85,18 @@ DEFAULT_MODEL = EnergyModel()
 
 
 def _odo_residual(th_anchor, odo0, odo1, dxy, dth):
-    """Relative-displacement odometry residual (P, 3).
+    """Relative-displacement odometry residual (..., 3).
 
     rot2(odo0_theta) @ (odo1_xy - odo0_xy) - rot2(th_anchor) @ dxy, plus the
     wrapped heading increment mismatch.
     """
-    c0, s0 = torch.cos(odo0[:, 2]), torch.sin(odo0[:, 2])
+    c0, s0 = torch.cos(odo0[..., 2]), torch.sin(odo0[..., 2])
     ca, sa = torch.cos(th_anchor), torch.sin(th_anchor)
-    d0 = odo1[:, 0] - odo0[:, 0]
-    d1 = odo1[:, 1] - odo0[:, 1]
-    rx = (c0 * d0 + s0 * d1) - (ca * dxy[:, 0] + sa * dxy[:, 1])
-    ry = (-s0 * d0 + c0 * d1) - (-sa * dxy[:, 0] + ca * dxy[:, 1])
-    rth = wrap_angle(odo1[:, 2] - odo0[:, 2] - dth)
+    d0 = odo1[..., 0] - odo0[..., 0]
+    d1 = odo1[..., 1] - odo0[..., 1]
+    rx = (c0 * d0 + s0 * d1) - (ca * dxy[..., 0] + sa * dxy[..., 1])
+    ry = (-s0 * d0 + c0 * d1) - (-sa * dxy[..., 0] + ca * dxy[..., 1])
+    rth = wrap_angle(odo1[..., 2] - odo0[..., 2] - dth)
     return torch.stack([rx, ry, rth], dim=-1)
 
 
@@ -116,8 +116,8 @@ def obs_residuals(x, p: PoseProblem, sqrt_q,
 
 
 def _wrap_heading(gg):
-    """(P, 3) pose difference with its heading wrapped."""
-    return torch.cat([gg[:, :2], wrap_angle(gg[:, 2:3])], dim=1)
+    """(..., 3) pose difference with its heading wrapped."""
+    return torch.cat([gg[..., :2], wrap_angle(gg[..., 2:3])], dim=-1)
 
 
 def one_sided_residuals(x, p: PoseProblem, w,

@@ -110,34 +110,48 @@ def allocate_new_labels(labels, pts, mask, nact, dist_thr, quirk=True):
     """Assign labels >= nact to the far observations (labels == -1) of one
     frame.  quirk: all of them share one new label (ICM_SLAM.py:176);
     otherwise connected components at dist_thr, labelled nact, nact+1, ...
-    Returns (labels, n_new); labels may reach past the table (>= L)."""
+    Returns (labels, n_new); labels may reach past the table (>= L).
+
+    labels (..., B), pts (..., B, 2), mask (..., B), nact (...): a fleet's
+    frame has a leading world axis W, and each world takes its own far
+    points, live count and ``n_new`` (W,)."""
     far = labels == -1
+    has_far = far.any(dim=-1)
     if quirk:
-        return torch.where(far, nact, labels), far.any().to(torch.int32)
+        return (torch.where(far, nact[..., None], labels),
+                has_far.to(torch.int32))
     B = pts.shape[-2]
     comp = connected_component_labels(pts, far & mask, dist_thr)
     comp = compact_labels(comp, far & mask, B)
-    labels = torch.where(far, nact + comp, labels)
-    n_new = torch.where(far.any(), torch.where(far, comp, -1).max() + 1, 0)
+    labels = torch.where(far, nact[..., None] + comp, labels)
+    n_new = torch.where(has_far, torch.where(far, comp, -1).amax(dim=-1) + 1,
+                        0)
     return labels, n_new.to(torch.int32)
 
 
 def scatter_update(state: MapState, pts, labels, n_new) -> MapState:
     """Fold one frame's observations into the table by incremental
     weighted mean (ICM_SLAM.py:184-194).  Labels >= L go to a discard row
-    that is sliced off."""
-    L = state.pos.shape[0]
+    that is sliced off.  A fleet (a leading world axis W on every input)
+    sums into one flat table, each world's rows L + 1 apart."""
+    L = state.pos.shape[-2]
+    lead = state.pos.shape[:-2]
     dtype, dev = state.pos.dtype, state.pos.device
+    n = state.counts[..., 0].numel()
     idx = torch.clamp(labels, max=L).long()
+    if lead:
+        idx = idx + torch.arange(0, n * (L + 1), L + 1, device=dev)[:, None]
     w = (labels < L).to(dtype)
-    sums = add_rows(torch.zeros((L + 1, 2), dtype=dtype, device=dev), idx,
-                    pts * w[:, None])[:L]
-    cnt = add_rows(torch.zeros((L + 1,), dtype=dtype, device=dev), idx,
-                   w)[:L]
+    sums = add_rows(torch.zeros((n * (L + 1), 2), dtype=dtype, device=dev),
+                    idx.reshape(-1), (pts * w[..., None]).reshape(-1, 2))
+    cnt = add_rows(torch.zeros((n * (L + 1),), dtype=dtype, device=dev),
+                   idx.reshape(-1), w.reshape(-1))
+    sums = sums.view(lead + (L + 1, 2))[..., :L, :]
+    cnt = cnt.view(lead + (L + 1,))[..., :L]
     tot = state.counts + cnt
-    new_pos = torch.where((cnt > 0)[:, None],
-                          (sums + state.pos * state.counts[:, None])
-                          / torch.clamp(tot, min=1.0)[:, None],
+    new_pos = torch.where((cnt > 0)[..., None],
+                          (sums + state.pos * state.counts[..., None])
+                          / torch.clamp(tot, min=1.0)[..., None],
                           state.pos)
     return MapState(new_pos, tot, state.nact + n_new)
 
@@ -152,11 +166,13 @@ def update(state: MapState, ref_pos, ref_nact, pts, mask, dist_thr,
     the CPU) over the live prefix ``arange(L) < ref_nact``, gated on the
     distance it returns.  It takes the argmin of d^2 where ``associate``
     takes that of sqrt(d^2): the same gate, and the same label except on a
-    tie of sqrt(d^2).
+    tie of sqrt(d^2).  A fleet's frame (pts (W, B, 2), mask (W, B), the
+    state, ref_pos (W, L, 2) and ref_nact (W,) with the world axis) is one
+    launch of K2 at (W, 1, B, L), each world against its own table.
     """
-    L = ref_pos.shape[0]
-    lab, dist = nearest_landmark(pts[None], ref_pos, ref_nact)
-    labels = torch.where(dist[0] > dist_thr, -1, lab[0])
+    L = ref_pos.shape[-2]
+    lab, dist = nearest_landmark(pts[..., None, :, :], ref_pos, ref_nact)
+    labels = torch.where(dist[..., 0, :] > dist_thr, -1, lab[..., 0, :])
     labels = torch.where(mask, labels, L)
     labels, n_new = allocate_new_labels(labels, pts, mask, state.nact,
                                         dist_thr, quirk)

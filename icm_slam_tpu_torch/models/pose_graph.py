@@ -9,7 +9,9 @@ Where the JAX package takes H v from a ``jvp`` and a ``vjp`` of the
 stacked residuals and the per-edge 3x3 blocks from ``jacfwd``, the port
 takes both from the closed-form Jacobians of the SE(2) relative residual
 in x_i and x_j (``_edge_jacobians``), formed once per Gauss-Newton step:
-the same products, a dozen small ops per H v on the card.
+the same products, a dozen small ops per H v on the card.  The per-node
+sums go through ``landmark_map.add_rows``, so they add in a fixed order on
+the card too.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from icm_slam_tpu_torch.core.geometry import wrap_angle
+from icm_slam_tpu_torch.mapping.landmark_map import add_rows
 
 
 class PoseGraph(NamedTuple):
@@ -74,9 +77,8 @@ def _jt(jac, g: PoseGraph, r, T):
     two nodes."""
     Ji, Jj = jac
     out = torch.zeros((T, 3), dtype=r.dtype, device=r.device)
-    out.index_add_(0, g.edges_i, (Ji * r[:, :, None]).sum(dim=1))
-    out.index_add_(0, g.edges_j, (Jj * r[:, :, None]).sum(dim=1))
-    return out
+    add_rows(out, g.edges_i, (Ji * r[:, :, None]).sum(dim=1))
+    return add_rows(out, g.edges_j, (Jj * r[:, :, None]).sum(dim=1))
 
 
 def _hvp(x, g: PoseGraph, v, jac=None):
@@ -96,10 +98,10 @@ def _block_jacobi(x, g: PoseGraph, jac=None):
     T = x.shape[0]
     Ji, Jj = _edge_jacobians(x, g) if jac is None else jac
     diag = torch.zeros((T, 3, 3), dtype=x.dtype, device=x.device)
-    diag.index_add_(0, g.edges_i, (Ji[:, :, :, None] * Ji[:, :, None, :])
-                    .sum(dim=1))
-    diag.index_add_(0, g.edges_j, (Jj[:, :, :, None] * Jj[:, :, None, :])
-                    .sum(dim=1))
+    add_rows(diag, g.edges_i,
+             (Ji[:, :, :, None] * Ji[:, :, None, :]).sum(dim=1))
+    add_rows(diag, g.edges_j,
+             (Jj[:, :, :, None] * Jj[:, :, None, :]).sum(dim=1))
     eye = torch.eye(3, dtype=x.dtype, device=x.device)
     diag = diag + 1e-6 * eye
     diag[0] = eye
@@ -107,27 +109,34 @@ def _block_jacobi(x, g: PoseGraph, jac=None):
 
 
 def apply_blocks(minv, r):
-    """(T, 3) product of (T, 3, 3) blocks with (T, 3) vectors."""
-    return (minv * r[:, None, :]).sum(dim=-1)
+    """(..., T, 3) product of (..., T, 3, 3) blocks with (..., T, 3)
+    vectors."""
+    return (minv * r[..., None, :]).sum(dim=-1)
 
 
-def _pcg(hvp, b, prec, iters):
+def _dot_all(a, b):
+    return (a * b).sum()
+
+
+def _pcg(hvp, b, prec, iters, dot=_dot_all):
     """Preconditioned CG for H dx = b, ``iters`` fixed iterations with no
-    host sync; ``prec(r)`` applies the preconditioner.  A step whose
-    curvature p.Hp or r.z is not positive is taken as zero, as in JAX."""
+    host sync; ``prec(r)`` applies the preconditioner and ``dot`` takes
+    the inner products (over everything, or per world of a fleet's
+    independent systems).  A step whose curvature p.Hp or r.z is not
+    positive is taken as zero, as in JAX."""
     x = torch.zeros_like(b)
     r = b
     z = prec(r)
     p = z
     for _ in range(iters):
         hp = hvp(p)
-        rz = (r * z).sum()
-        denom = (p * hp).sum()
+        rz = dot(r, z)
+        denom = dot(p, hp)
         alpha = torch.where(denom > 0, rz / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * hp
         z1 = prec(r)
-        beta = torch.where(rz > 0, (r * z1).sum() / rz, 0.0)
+        beta = torch.where(rz > 0, dot(r, z1) / rz, 0.0)
         p = z1 + beta * p
         z = z1
     return x

@@ -9,9 +9,9 @@ filter.  The per-sweep witnesses and map changes stay on the device
 during a segment of sweeps and are checked at its end, before any
 observer sees the segment's state, as the fused JAX loop does.
 
-``run_batched`` is fleet mode: W same-shape worlds through the batched
-engine at once, on a leading world axis (the JAX package's ``vmap``), so
-that W worlds cost the kernel launches of one.
+``run_batched`` is fleet mode: W same-shape worlds through the engines at
+once, on a leading world axis (the JAX package's ``vmap``), so that W
+worlds cost the kernel launches of one.
 """
 from __future__ import annotations
 
@@ -209,7 +209,8 @@ def _init_merge_cap(config: ICMConfig) -> int:
 
 
 def _init(data: SweepData, seed: MapState, x0, config: ICMConfig, w):
-    """Iteration 0. Returns (map_state, poses (T, 3), raw_nact)."""
+    """Iteration 0. Returns (map_state, poses (T, 3), raw_nact), or a
+    fleet's (W, T, 3) poses and (W,) counts."""
     if use_batched_init(config):
         return init_sweep_batched(data, seed, x0, config, w)
     return init_sweep(data, seed, x0, config, w)
@@ -221,7 +222,7 @@ def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
 
     Returns (filtered map, poses, witness): witness = int32 [raw pre-filter
     live count, kept-after-prune count], validated by check_witness; a
-    fleet's batched sweep (world axis W) returns (W, 2) witnesses.
+    fleet's sweep (world axis W) returns (W, 2) witnesses.
     """
     if config.sweep_mode == "sequential":
         state, x = refine_sweep_sequential(data, old_map, x, config, w)
@@ -406,7 +407,7 @@ def run(dataset: Dataset, config: ICMConfig, device,
 
 
 # ---------------------------------------------------------------------------
-# fleet mode: W worlds through the batched engine at once
+# fleet mode: W worlds through the engines at once
 # ---------------------------------------------------------------------------
 
 def resolve_fleet_config(config: ICMConfig, datas) -> ICMConfig:
@@ -430,30 +431,6 @@ def resolve_fleet_config(config: ICMConfig, datas) -> ICMConfig:
     return dataclasses.replace(resolved[0], obs_cap=obs_cap,
                                map_run_cap=run_cap,
                                map_run_cap_checked=run_cap > 0)
-
-
-def check_fleet_supported(config: ICMConfig) -> None:
-    """Raise NotImplementedError for the configurations ``run_batched``
-    does not run yet; the JAX package's fleet takes them.  Fleet mode runs
-    the batched Picard init and ``sweep_mode="batched"`` with the default
-    model, on the capped and the uncapped association, with either
-    ``pose_update``."""
-    if config.model is not None:
-        raise NotImplementedError(
-            "run_batched: custom EnergyModel hooks (config.model) are not "
-            "ported to fleet mode yet")
-    if config.sweep_mode != "batched":
-        raise NotImplementedError(
-            f"run_batched: sweep_mode={config.sweep_mode!r} is not ported "
-            f"to fleet mode yet (only 'batched')")
-    if not config.replicate_new_obs_quirk:
-        raise NotImplementedError(
-            "run_batched: replicate_new_obs_quirk=False (connected-"
-            "component labels) is not ported to fleet mode yet")
-    if not use_batched_init(config):
-        raise NotImplementedError(
-            f"run_batched: the causal init (init_mode="
-            f"{config.init_mode!r}) is not ported to fleet mode yet")
 
 
 def _stack(items):
@@ -481,29 +458,29 @@ def run_batched(datasets, config: ICMConfig, device,
 
     Port of ``icm_slam_tpu.solver.icm.run_batched``: each world is
     prepared and seeded on the host, then the worlds are stacked and the
-    batched init, the map filter and the N refinement sweeps run once on
-    the stack (``solver.sweeps`` on a leading world axis): the kernels see
-    W worlds in one launch, and one LM batch solves every world's poses.
-    The init's and every sweep's witnesses are checked per world after
-    the run, naming the world.  Returns one ``ICMResult`` per world
-    (``changes`` empty), each with the shared timings ``prepare_s``,
-    ``init_s``, ``hoist_s``, ``refine_s``, ``refine_per_iter_s``,
-    ``pipeline_s`` (init to the last sweep) and ``per_world_s``.
+    init (batched or causal, as ``run()`` picks it), the map filter and
+    the N refinement sweeps (any ``sweep_mode``) run once on the stack
+    (``solver.sweeps`` and ``models`` on a leading world axis): the
+    kernels see W worlds in one launch, and one LM batch solves every
+    world's poses, a frame at a time in the causal engines.  The init's
+    and every sweep's witnesses are checked per world after the run,
+    naming the world.  Returns one ``ICMResult`` per world (``changes``
+    empty), each with the shared timings ``prepare_s``, ``init_s``,
+    ``hoist_s``, ``refine_s``, ``refine_per_iter_s``, ``pipeline_s``
+    (init to the last sweep) and ``per_world_s``.
 
     Every world has the same (T, n_beams) shape and runs under the merged
-    config of ``resolve_fleet_config``.  Configurations outside the
-    batched engine raise NotImplementedError (``check_fleet_supported``),
-    and so does ``mesh``: sharding a fleet over devices waits for the
-    port's ``parallel/``.  Without a mesh nothing is padded.
+    config of ``resolve_fleet_config``.  ``mesh`` raises
+    NotImplementedError: sharding a fleet over devices is the port's
+    ``parallel/``, its next slice.  Without a mesh nothing is padded.
     """
     if not datasets:
         return []
     if mesh is not None:
         raise NotImplementedError(
-            "run_batched(mesh=...): sharding a fleet over devices is not "
-            "ported yet")
+            "run_batched(mesh=...): sharding a fleet over devices needs the "
+            "port's parallel/ (torch.distributed), its next slice")
     check_supported(config)
-    check_fleet_supported(config)
     device = resolve_device(device)
     n_iters = config.N if n_iters is None else n_iters
     timings = {}
@@ -514,7 +491,7 @@ def run_batched(datasets, config: ICMConfig, device,
     timings["prepare_s"] = time.perf_counter() - t0
 
     t_pipe = t0 = time.perf_counter()
-    state, x, raw_nact = init_sweep_batched(data, seed, x0, config, w)
+    state, x, raw_nact = _init(data, seed, x0, config, w)
     init_wit = torch.stack([raw_nact.to(torch.int32),
                             kept_count(state, config.cota)], dim=-1)
     cur_map = filter_map(state, config.cota, config.dist_thr,

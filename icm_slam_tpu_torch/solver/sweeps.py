@@ -18,14 +18,16 @@ Port of ``icm_slam_tpu.solver.sweeps``:
   passes) of batched LM solves with the last frame's one-sided solve
   folded into the batch.
 
-The batched engine (``compact_data``, ``init_sweep_batched``,
-``batched_associate``, ``refine_sweep_batched`` and their helpers) runs on
-a leading world axis W: a fleet of W same-shape worlds
-(``solver.icm.run_batched``, the JAX package's ``vmap``) is the same
-sequence of operations as one world, each one W times as wide, and the
-kernels take W worlds in one launch.  Given one world (no W axis), each
-of these functions runs the same code with W = 1.  Every cumulative sum
-runs along the frames of its own world.
+Every engine runs on a leading world axis W: a fleet of W same-shape
+worlds (``solver.icm.run_batched``, the JAX package's ``vmap``) is the
+same sequence of operations as one world, each one W times as wide, and
+the kernels take W worlds in one launch.  Given one world (no W axis),
+the batched engine (``compact_data``, ``init_sweep_batched``,
+``batched_associate``, ``refine_sweep_batched`` and their helpers) runs
+the same code with W = 1, and the causal engines (``init_sweep``,
+``init_chunk``, ``refine_sweep_sequential``) run their one-world form, the
+same ops without the axis.  Every cumulative sum runs along the frames of
+its own world.
 
 The association runs through the port's CUDA kernels on a GPU: the fused
 association + per-frame sums (``ops.assoc_sums``) on the capped quirk
@@ -42,6 +44,8 @@ batch.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -139,11 +143,6 @@ def _model_of(config) -> EnergyModel:
     return DEFAULT_MODEL if config.model is None else config.model
 
 
-def _predict(model: EnergyModel, x, u, deltat):
-    """``model.kinematics`` of one pose (3,) in the hooks' (P, 3) form."""
-    return model.kinematics(x[None], u[None], deltat)[0]
-
-
 def _one_sided(prob, w, config):
     """(residual fn, Jacobian fn) of the one-sided cost under the config's
     model: analytic, with forward mode for a hook's own terms."""
@@ -159,72 +158,98 @@ def _two_sided(prob, w, config):
 
 
 def _where_map(cond, a: MapState, b: MapState) -> MapState:
-    return MapState(*(torch.where(cond, u, v) for u, v in zip(a, b)))
+    """``a`` where ``cond`` else ``b``, field by field; ``cond`` () for one
+    world, (W,) for a fleet's maps."""
+    return MapState(*(torch.where(cond.reshape(cond.shape + (1,) * (
+        u.dim() - cond.dim())), u, v) for u, v in zip(a, b)))
 
 
 # ---------------------------------------------------------------------------
 # causal init sweep — ICM iteration 0, frame by frame
 # ---------------------------------------------------------------------------
+#
+# The causal engines (``_causal_step``, ``init_chunk``, ``init_sweep``,
+# ``refine_sweep_sequential``) take one world or a fleet's W worlds on a
+# leading world axis: poses (W, 3) or (W, T, 3), the map and ``data`` with
+# the world axis.  A fleet's frame is then one K2 launch at (W, 1, B, L)
+# (``landmark_map.update``) and one LM batch of W poses, so W worlds cost
+# the launches of one; every choice per world is a ``torch.where``.
 
 def _causal_step(state: MapState, xt, frame, config, w):
     """One frame of the causal init (ICM_ROS.py:102-119).
 
     frame = (dist_t (B,), mask_t (B,), ang_t (B,), u_prev (2,),
-    odo_prev (3,), odo_cur (3,)).  Returns (new state, new pose).  Empty
-    frames dead-reckon and leave the map as ``update`` left it (it adds
-    nothing for an all-masked frame); the choice is a ``torch.where``, so
-    the step never waits for the device.
+    odo_prev (3,), odo_cur (3,)), each with the world axis W of a fleet
+    (xt (W, 3)).  Returns (new state, new pose).  Empty frames dead-reckon
+    and leave the map as ``update`` left it (it adds nothing for an
+    all-masked frame); the choice is a ``torch.where``, so the step never
+    waits for the device.
     """
     dist_t, mask_t, ang_t, u_prev, odo_prev, odo_cur = frame
-    L = state.pos.shape[0]
-    xtc = _predict(_model_of(config), xt, u_prev, config.deltat)
-    empty = ~mask_t.any()
+    lead = xt.shape[:-1]
+    flat = functools.partial(_flat, lead=len(lead))
+    L = state.pos.shape[-2]
+    model = _model_of(config)
+    xtc = model.kinematics(flat(xt), flat(u_prev), config.deltat).view(
+        xt.shape)
+    empty = ~mask_t.any(dim=-1)
     pts = beams_to_world(xtc, dist_t, ang_t)
     new_state, labels = update(state, state.pos, state.nact, pts, mask_t,
                                config.dist_thr,
                                config.replicate_new_obs_quirk)
-    matched = new_state.pos[torch.clamp(labels, 0, L - 1).long()]
+    matched = torch.gather(
+        new_state.pos, -2,
+        torch.clamp(labels, 0, L - 1).long()[..., None].expand(
+            labels.shape + (2,)))
     dist_p, ang_p, mask_p, matched_p = dist_t, ang_t, mask_t, matched
     cap = config.obs_cap or 0
-    B = mask_t.shape[0]
+    B = mask_t.shape[-1]
     if cap and cap < B:
         # gather the valid beams for the pose solve (exact when cap >= the
-        # frame's valid count): the JAX cumsum-scatter compaction
-        rank = torch.cumsum(mask_t, 0) - 1
-        tgt = torch.where(mask_t & (rank < cap), rank, cap)
-        order = torch.zeros((cap + 1,), dtype=torch.long,
-                            device=mask_t.device)
-        order[tgt] = torch.arange(B, device=mask_t.device)
-        order = order[:cap]
-        mask_p = torch.arange(cap, device=mask_t.device) < mask_t.sum()
-        dist_p, ang_p, matched_p = dist_t[order], ang_t[order], \
-            matched[order]
-    z3 = torch.zeros((1, 3), dtype=xt.dtype, device=xt.device)
+        # frame's valid count): the JAX cumsum-scatter compaction, each
+        # world's slots cap + 1 apart (slot cap discards)
+        n = mask_t[..., 0].numel()
+        dev = mask_t.device
+        rank = torch.cumsum(mask_t, -1) - 1
+        tgt = (torch.where(mask_t & (rank < cap), rank, cap)
+               + torch.arange(0, n * (cap + 1), cap + 1,
+                              device=dev).view(lead + (1,)))
+        order = torch.zeros((n * (cap + 1),), dtype=torch.long, device=dev)
+        order[tgt.reshape(-1)] = torch.arange(B, device=dev).repeat(n)
+        order = order.view(lead + (cap + 1,))[..., :cap]
+        mask_p = (torch.arange(cap, device=dev)
+                  < mask_t.sum(dim=-1, keepdim=True))
+        dist_p = torch.gather(dist_t, -1, order)
+        ang_p = torch.gather(ang_t.expand(dist_t.shape), -1, order)
+        matched_p = torch.gather(matched, -2,
+                                 order[..., None].expand(order.shape + (2,)))
+    z3 = xt.new_zeros((math.prod(lead), 3))
     prob = PoseProblem(
-        dist=dist_p[None], ang=ang_p[None], mask=mask_p[None],
-        matched=matched_p[None], x_prev=xt[None], u_prev=u_prev[None],
-        odo_prev=odo_prev[None], odo_cur=odo_cur[None], x_next=z3,
+        dist=flat(dist_p), ang=flat(ang_p), mask=flat(mask_p),
+        matched=flat(matched_p), x_prev=flat(xt), u_prev=flat(u_prev),
+        odo_prev=flat(odo_prev), odo_cur=flat(odo_cur), x_next=z3,
         u_cur=z3[:, :2], odo_next=z3)
-    x_opt = lm_minimize(*_one_sided(prob, w, config), xtc[None],
-                        iters=config.pose_gn_iters)[0]
-    return new_state, torch.where(empty, xtc, x_opt)
+    x_opt = lm_minimize(*_one_sided(prob, w, config), flat(xtc),
+                        iters=config.pose_gn_iters).view(xt.shape)
+    return new_state, torch.where(empty[..., None], xtc, x_opt)
 
 
 def init_chunk(data: SweepData, state: MapState, xt, config, w,
                t_offset: int = 1):
     """Causal init over the frames t_offset..T-1 of ``data``, from the
     carry (state, xt).  Returns (state, last pose, poses of those frames
-    (T - t_offset, 3))."""
-    T = data.dist.shape[0]
-    ang = data.ang if data.ang.dim() == 2 else data.ang.expand(
-        data.dist.shape)
+    (T - t_offset, 3), or (W, T - t_offset, 3) for a fleet)."""
+    T = data.dist.shape[-2]
+    ang = _per_frame_ang(data).ang
     xs = []
     for t in range(t_offset, T):
-        frame = (data.dist[t], data.mask[t], ang[t], data.u[t - 1],
-                 data.odom[t - 1], data.odom[t])
+        frame = (data.dist[..., t, :], data.mask[..., t, :], ang[..., t, :],
+                 data.u[..., t - 1, :], data.odom[..., t - 1, :],
+                 data.odom[..., t, :])
         state, xt = _causal_step(state, xt, frame, config, w)
         xs.append(xt)
-    xs = torch.stack(xs) if xs else xt.new_zeros((0, 3))
+    xs = (torch.stack(xs, dim=-2) if xs
+          else xt.new_zeros(xt.shape[:-1] + (0, 3)))
     return state, xt, xs
 
 
@@ -233,13 +258,15 @@ def init_sweep(data: SweepData, seed: MapState, x0, config, w
     """The causal init over frames 1..T-1 from the frame-0 seed.
 
     Returns (map_state, poses (T, 3), raw_nact): the raw allocated-label
-    count, the table-overflow witness.
+    count, the table-overflow witness.  A fleet (``x0`` (W, 3), ``data``
+    and ``seed`` with the world axis) returns (W, T, 3) poses and (W,)
+    counts, one K2 launch and one LM batch a frame for all W worlds.
     """
     cap = config.obs_cap or 0
-    if cap and cap < data.dist.shape[1]:
+    if cap and cap < data.dist.shape[-1]:
         data = compact_data(data, cap)
     state, _, xs = init_chunk(data, seed, x0, config, w, t_offset=1)
-    return state, torch.cat([x0[None], xs]), state.nact
+    return state, torch.cat([x0[..., None, :], xs], dim=-2), state.nact
 
 
 # ---------------------------------------------------------------------------
@@ -257,70 +284,83 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
     stale x[t+1]), the last frame the one-sided cost from the kinematic
     prediction; empty frames average.  The poses are written in place
     into a clone of ``x``.  An empty frame 0 returns (old_map, x)
-    unchanged (ICM_ROS.py:133-135), chosen by ``torch.where``.
+    unchanged (ICM_ROS.py:133-135), chosen by ``torch.where``.  A fleet
+    (``x`` (W, T, 3), ``data`` and ``old_map`` with the world axis) writes
+    ``x_all[:, t]``: one K2 launch and one LM batch a frame for all W
+    worlds, each world's choices its own.
     """
-    T = x.shape[0]
-    L = old_map.pos.shape[0]
+    T = x.shape[-2]
+    lead = x.shape[:-2]
+    flat = functools.partial(_flat, lead=len(lead))
+    L = old_map.pos.shape[-2]
     dist_thr = config.dist_thr
     quirk = config.replicate_new_obs_quirk
     iters = config.pose_gn_iters
     dtype, dev = x.dtype, x.device
-    ang = data.ang[None]
+    ang = flat(data.ang.expand(data.dist.shape[:-2] + data.dist.shape[-1:]))
     model = _model_of(config)
 
-    def assoc_frame(state, xt, t):
-        pts = beams_to_world(xt, data.dist[t], data.ang)
-        new_state, labels = update(state, old_map.pos, old_map.nact, pts,
-                                   data.mask[t], dist_thr, quirk)
-        return new_state, new_state.pos[torch.clamp(labels, 0,
-                                                     L - 1).long()]
+    def at(a, t):
+        """Frame t of ``a`` (..., T, ...) as (P, ...)."""
+        return flat(a[..., t, :])
 
-    state = MapState(torch.zeros((L, 2), dtype=dtype, device=dev),
-                     torch.zeros((L,), dtype=dtype, device=dev),
+    def assoc_frame(state, xt, t):
+        pts = beams_to_world(xt, data.dist[..., t, :], data.ang)
+        new_state, labels = update(state, old_map.pos, old_map.nact, pts,
+                                   data.mask[..., t, :], dist_thr, quirk)
+        return new_state, torch.gather(
+            new_state.pos, -2,
+            torch.clamp(labels, 0, L - 1).long()[..., None].expand(
+                labels.shape + (2,)))
+
+    state = MapState(torch.zeros(lead + (L, 2), dtype=dtype, device=dev),
+                     torch.zeros(lead + (L,), dtype=dtype, device=dev),
                      old_map.nact)
-    state, _ = assoc_frame(state, x[0], 0)
+    state, _ = assoc_frame(state, x[..., 0, :], 0)
     x_all = x.clone()
-    xt_run = x[0]
+    xt_run = x[..., 0, :]
     for t in range(1, T - 1):
-        empty = ~data.mask[t].any()
-        new_state, matched = assoc_frame(state, x_all[t], t)
-        x_prev, x_next = x_all[t - 1], x_all[t + 1]
+        empty = ~data.mask[..., t, :].any(dim=-1)
+        new_state, matched = assoc_frame(state, x_all[..., t, :], t)
+        x_prev, x_next = x_all[..., t - 1, :], x_all[..., t + 1, :]
         prob = PoseProblem(
-            dist=data.dist[t][None], ang=ang, mask=data.mask[t][None],
-            matched=matched[None], x_prev=x_prev[None],
-            u_prev=data.u[t - 1][None], odo_prev=data.odom[t - 1][None],
-            odo_cur=data.odom[t][None], x_next=x_next[None],
-            u_cur=data.u[t][None], odo_next=data.odom[t + 1][None])
+            dist=at(data.dist, t), ang=ang, mask=at(data.mask, t),
+            matched=flat(matched), x_prev=flat(x_prev),
+            u_prev=at(data.u, t - 1), odo_prev=at(data.odom, t - 1),
+            odo_cur=at(data.odom, t), x_next=flat(x_next),
+            u_cur=at(data.u, t), odo_next=at(data.odom, t + 1))
         x_opt = lm_minimize(*_two_sided(prob, w, config),
-                            ((x_prev + x_next) / 2.0)[None], iters=iters)[0]
-        x_t = torch.where(empty, (xt_run + x_next) / 2.0, x_opt)
+                            flat((x_prev + x_next) / 2.0),
+                            iters=iters).view(x_prev.shape)
+        x_t = torch.where(empty[..., None], (xt_run + x_next) / 2.0, x_opt)
         state = _where_map(empty, state, new_state)
-        x_all[t] = x_t
+        x_all[..., t, :] = x_t
         xt_run = x_t
 
     t = T - 1
-    empty = ~data.mask[t].any()
-    new_state, matched = assoc_frame(state, x_all[t], t)
-    x_prev = x_all[t - 1]
-    z3 = torch.zeros((1, 3), dtype=dtype, device=dev)
+    empty = ~data.mask[..., t, :].any(dim=-1)
+    new_state, matched = assoc_frame(state, x_all[..., t, :], t)
+    x_prev = x_all[..., t - 1, :]
+    z3 = torch.zeros((math.prod(lead), 3), dtype=dtype, device=dev)
     prob = PoseProblem(
-        dist=data.dist[t][None], ang=ang, mask=data.mask[t][None],
-        matched=matched[None], x_prev=x_prev[None],
-        u_prev=data.u[t - 1][None], odo_prev=data.odom[t - 1][None],
-        odo_cur=data.odom[t][None], x_next=z3, u_cur=z3[:, :2],
-        odo_next=z3)
+        dist=at(data.dist, t), ang=ang, mask=at(data.mask, t),
+        matched=flat(matched), x_prev=flat(x_prev), u_prev=at(data.u, t - 1),
+        odo_prev=at(data.odom, t - 1), odo_cur=at(data.odom, t), x_next=z3,
+        u_cur=z3[:, :2], odo_next=z3)
     x_one = lm_minimize(
         *_one_sided(prob, w, config),
-        _predict(model, x_prev, data.u[t - 1], config.deltat)[None],
-        iters=iters)[0]
+        model.kinematics(flat(x_prev), at(data.u, t - 1), config.deltat),
+        iters=iters).view(x_prev.shape)
     # an empty last frame dead-reckons from the running pose (the
     # reference would index past the end, ICM_ROS.py:144)
-    x_t = torch.where(empty, (xt_run + x_all[t]) / 2.0, x_one)
+    x_t = torch.where(empty[..., None], (xt_run + x_all[..., t, :]) / 2.0,
+                      x_one)
     state = _where_map(empty, state, new_state)
-    x_all[t] = x_t
+    x_all[..., t, :] = x_t
 
-    empty0 = ~data.mask[0].any()
-    return _where_map(empty0, old_map, state), torch.where(empty0, x, x_all)
+    empty0 = ~data.mask[..., 0, :].any(dim=-1)
+    return (_where_map(empty0, old_map, state),
+            torch.where(empty0[..., None, None], x, x_all))
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +427,8 @@ def _rechain(xs, x_prev_stale, x_last, keep_abs=None):
 
 def _flat(a, lead: int = 2):
     """``a`` with its first ``lead`` axes (worlds, frames) merged into the
-    problem axis P that the LM solver and the energy hooks take."""
+    problem axis P that the LM solver and the energy hooks take; with
+    ``lead`` 0, one problem (P = 1)."""
     return a.reshape((-1,) + a.shape[lead:])
 
 

@@ -37,6 +37,10 @@ from icm_slam_tpu_torch.utils import checkpoint as tckpt
 from icm_slam_tpu_torch.utils import export as texport
 from icm_slam_tpu_torch.utils import metrics as tmetrics
 from tests.torch_parity import assert_close
+from tests.torch_parity import one_thread  # noqa: F401
+
+# one CPU thread: these small worlds run 2-3x faster without threads
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BAND = 1e-3

@@ -30,13 +30,16 @@ from icm_slam_tpu.mapping import landmark_map as jlm
 from icm_slam_tpu.solver import icm as jicm
 from icm_slam_tpu_torch import convert
 from icm_slam_tpu_torch.config import ICMConfig as TC
-from icm_slam_tpu_torch.core.energy import EnergyModel
 from icm_slam_tpu_torch.mapping import landmark_map as tlm
 from icm_slam_tpu_torch.ops import _build
 from icm_slam_tpu_torch.ops import assoc as k2
 from icm_slam_tpu_torch.ops import assoc_sums as k1
 from icm_slam_tpu_torch.solver import icm as ticm
 from tests.torch_parity import assert_close, assert_equal
+from tests.torch_parity import one_thread  # noqa: F401
+
+# one CPU thread: these small worlds run 2-3x faster without threads
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SLICE_SEEDS = (7, 10, 11)
 
@@ -190,12 +193,10 @@ def test_a_worlds_overflow_is_named_as_jax_names_it():
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(model=EnergyModel()), dict(sweep_mode="sequential"),
-    dict(sweep_mode="ba"), dict(sweep_mode="windowed_ba"),
-    dict(init_mode="sequential"), dict(replicate_new_obs_quirk=False),
-    dict(mesh="mesh")])
+@pytest.mark.parametrize("kw", [dict(mesh="mesh")], ids=["mesh"])
 def test_what_fleet_mode_lacks_raises(kw):
+    """Sharding a fleet over devices (``mesh``) waits for the port's
+    ``parallel/``; every configuration is tests/test_torch_fleet_modes.py's."""
     worlds = [synthetic_world(T=20, n_landmarks=4, seed=s) for s in (0, 1)]
     mesh = kw.pop("mesh", None)
     cfg = TC(L=256, N=1, **kw)

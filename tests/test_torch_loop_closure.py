@@ -36,6 +36,10 @@ from icm_slam_tpu_torch.models import loop_closure as tlc
 from icm_slam_tpu_torch.models import pose_graph as tpg
 from icm_slam_tpu_torch.solver import icm as ticm
 from tests.torch_parity import assert_close, assert_equal, jf32, tf32
+from tests.torch_parity import one_thread  # noqa: F401
+
+# one CPU thread: these small worlds run 2-3x faster without threads
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BAND = 1e-3

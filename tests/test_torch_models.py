@@ -42,6 +42,10 @@ from icm_slam_tpu_torch.solver import sweeps as tsw
 from tests.torch_parity import (assert_close, jax_problem, jax_weights, jf32,
                                 random_problems, tf32, torch_problem,
                                 torch_weights)
+from tests.torch_parity import one_thread  # noqa: F401
+
+# one CPU thread: these small worlds run 2-3x faster without threads
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 BAND = 1e-3
 

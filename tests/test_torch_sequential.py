@@ -30,6 +30,10 @@ from icm_slam_tpu_torch.mapping import landmark_map as tlm
 from icm_slam_tpu_torch.solver import icm as ticm
 from icm_slam_tpu_torch.solver import sweeps as tsw
 from tests.torch_parity import assert_close, assert_equal, jf32, tf32
+from tests.torch_parity import one_thread  # noqa: F401
+
+# one CPU thread: these small worlds run 2-3x faster without threads
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 BAND = 1e-3
 

@@ -25,6 +25,10 @@ from icm_slam_tpu_torch import convert
 from icm_slam_tpu_torch.config import ICMConfig as TC
 from icm_slam_tpu_torch.solver import icm as ticm
 from tests.torch_parity import assert_close
+from tests.torch_parity import one_thread  # noqa: F401
+
+# one CPU thread: these small worlds run 2-3x faster without threads
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

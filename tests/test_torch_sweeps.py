@@ -32,6 +32,10 @@ from icm_slam_tpu_torch.core.energy import weights as tweights
 from icm_slam_tpu_torch.solver import icm as ticm
 from icm_slam_tpu_torch.solver import sweeps as tsw
 from tests.torch_parity import assert_close, assert_equal
+from tests.torch_parity import one_thread  # noqa: F401
+
+# one CPU thread: these small worlds run 2-3x faster without threads
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,7 @@ cast explicitly).
 """
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 
@@ -93,3 +94,14 @@ def torch_weights(R=(1.0, 2.0, 0.5), Q=(1.5, 0.7), cte=0.8, deltat=0.1):
     return (torch.sqrt(torch.tensor(R, dtype=f)),
             torch.sqrt(torch.tensor(Q, dtype=f)),
             torch.sqrt(torch.tensor(cte, dtype=f)), deltat)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One CPU thread for a module of small worlds: their ops are
+    thousands of elements, where torch's threads cost more than they
+    share (the results are the same)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

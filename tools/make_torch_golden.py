@@ -75,6 +75,35 @@ its fields under ``<prefix>_w<i>_`` per world and the merged caps under
   ``ICMConfig()`` (N=30, L=1024): worlds 0 and 1 of the port's fleet
   curve at W=2.
 
+``torch_fleet_modes_synth.npz`` (JAX ``run_batched`` with
+``use_pallas_fused_assoc=True``, ~3 min): a fleet of
+``synthetic_world(T=120, n_landmarks=10, seed=s)`` for s in 7, 10, 11 with
+``ICMConfig(N=2, L=256, cota=5)`` in each configuration the fleet takes
+beyond the default one, its fields as in ``torch_fleet_synth.npz``:
+
+* ``hooks_`` — the hooks of the ``hooks_`` case above, ``init_mode=
+  "batched"``;
+* ``ba_`` / ``wba_`` — ``sweep_mode="ba"`` / ``"windowed_ba"`` (window
+  32);
+* ``nq_`` — ``replicate_new_obs_quirk=False`` (the causal init, then
+  batched sweeps with connected-component labels);
+* ``iseq_`` — ``init_mode="sequential"`` (the causal init, then batched
+  sweeps);
+* ``seq_`` — ``sweep_mode="sequential"`` (the causal init and the
+  sequential sweep);
+
+each case also holds ``overflow_message``, the error JAX's fleet raises
+in that configuration when one of its worlds overflows the table
+(``OVERFLOW_WORLDS`` with ``ICMConfig(N=1, L=12, cota=2)``).
+
+``torch_oracle_synth.npz`` (``tests/oracle/reference_oracle.run_pipeline``,
+the reference's algorithm in NumPy, ~1 min a world): ``o<s>_`` for
+``synthetic_world(T=150, n_landmarks=10, seed=s)``, s in 0, 1, 4, with
+``OracleParams(N=3, L=256, cota=5)`` and tests/test_fuzz_oracle.py's
+ingest (scans + radio, clipped at the laser's range; the first pose the
+first odometry row): the oracle's poses ``x``, ``x_init`` and its map
+``map`` (2, n).
+
 The files hold outputs only — poses, map, census, map changes, the
 resolved caps, the ATE against the world's truth — plus a checksum of
 each world, which the reader must reproduce before it compares anything.
@@ -104,6 +133,22 @@ CLI_LOOP = ["run", "--dataset", "synthetic", "--frames", "600", "--iters",
             "3", "--loop-close"]
 # pose noise (m, rad) of the start of the BA cases' one backend call
 ONE_CALL_NOISE = 0.02
+_MODES_WORLDS = [dict(T=120, n_landmarks=10, seed=s) for s in (7, 10, 11)]
+_MODES_CFG = dict(N=2, L=256, cota=5.0)
+# the configurations of torch_fleet_modes_synth.npz, by case prefix
+FLEET_MODES = {"hooks": dict(init_mode="batched", model="hooks"),
+               "ba": dict(sweep_mode="ba"),
+               "wba": dict(sweep_mode="windowed_ba", ba_window=32),
+               "nq": dict(replicate_new_obs_quirk=False),
+               "iseq": dict(init_mode="sequential"),
+               "seq": dict(sweep_mode="sequential")}
+# a fleet whose world 1 overflows a table of 12 in every configuration
+OVERFLOW_WORLDS = [dict(T=60, n_landmarks=4, seed=0),
+                   dict(T=60, n_landmarks=40, seed=1)]
+OVERFLOW_CFG = dict(N=1, L=12, cota=2.0)
+ORACLE_SEEDS = (0, 1, 4)
+ORACLE_WORLD = dict(T=150, n_landmarks=10)
+ORACLE_PARAMS = dict(N=3, L=256, cota=5.0)
 # file -> (ICMConfig kwargs of every case, {prefix: (world kwargs, ICMConfig
 # kwargs)}); a "model" entry names one of MODELS
 GOLDENS = {
@@ -132,6 +177,13 @@ GOLDENS = {
          "wba": (_BIG, dict(sweep_mode="windowed_ba", N=3, ba_window=64)),
          "loop": (_LOOP, dict(N=15, L=1024, cota=10.0)),
          "cliloop": (None, CLI_LOOP)}),
+    "torch_fleet_modes_synth.npz": (
+        dict(use_pallas_fused_assoc=True),
+        {k: (_MODES_WORLDS, dict(_MODES_CFG, **kw))
+         for k, kw in FLEET_MODES.items()}),
+    "torch_oracle_synth.npz": (
+        "oracle", {f"o{s}": (dict(ORACLE_WORLD, seed=s), ORACLE_PARAMS)
+                   for s in ORACLE_SEEDS}),
 }
 
 
@@ -318,14 +370,20 @@ def make_fleet_case(worlds_kw, cfg_kw, common):
     from icm_slam_tpu_torch.data.datasets import world_checksum
     worlds = [_world(kw) for kw in worlds_kw]
     datasets = [ds for ds, _, _ in worlds]
-    cfg = ICMConfig(**cfg_kw, **common)
+    cfg_kw = dict(cfg_kw)
+    model = cfg_kw.pop("model", None)
+    cfg = ICMConfig(**cfg_kw, **common,
+                    model=None if model is None else MODELS[model]())
     merged = resolve_fleet_config(cfg, [prepare(ds, cfg) for ds in datasets])
     t0 = time.time()
     results = run_batched(datasets, cfg)
     dt = time.time() - t0
     fields = dict(obs_cap=merged.obs_cap, map_run_cap=merged.map_run_cap,
                   worlds=json.dumps(worlds_kw), wall_seconds=dt,
+                  config=json.dumps(cfg_kw),
                   census=np.array([r.map_pos.shape[0] for r in results]))
+    if model is not None:
+        fields["model"] = model
     for i, ((ds, x_true, _), res) in enumerate(zip(worlds, results)):
         ate = float(np.sqrt(((res.x[:, :2] - x_true[:, :2]) ** 2)
                             .sum(1).mean()))
@@ -334,6 +392,42 @@ def make_fleet_case(worlds_kw, cfg_kw, common):
             map_pos=res.map_pos, map_counts=res.map_counts,
             census=res.map_pos.shape[0], ate_rmse=ate).items()})
     return fields
+
+
+def overflow_message(mode_kw, common):
+    """The RuntimeError JAX's ``run_batched`` raises on OVERFLOW_WORLDS in
+    the configuration ``mode_kw``."""
+    from icm_slam_tpu.config import ICMConfig
+    from icm_slam_tpu.solver.icm import run_batched
+    mode_kw = dict(mode_kw)
+    model = mode_kw.pop("model", None)
+    cfg = ICMConfig(**OVERFLOW_CFG, **mode_kw, **common,
+                    model=None if model is None else MODELS[model]())
+    try:
+        run_batched([_world(kw)[0] for kw in OVERFLOW_WORLDS], cfg)
+    except RuntimeError as e:
+        return str(e)
+    raise AssertionError(f"no overflow in {mode_kw}")
+
+
+def make_oracle_case(world_kw, params_kw):
+    """The reference oracle on one world, with tests/test_fuzz_oracle.py's
+    ingest: the scans + radio clipped at the laser's range, transposed to
+    the reference's (B, T) layout."""
+    sys.path.insert(0, os.path.join(REPO, "tests", "oracle"))
+    from reference_oracle import OracleParams, run_pipeline
+    from icm_slam_tpu_torch.data.datasets import (synthetic_world,
+                                                  world_checksum)
+    ds = synthetic_world(**world_kw)
+    p = OracleParams(**params_kw)
+    scans = np.minimum(np.asarray(ds.scans) + p.radio, p.rango_laser_max)
+    t0 = time.time()
+    out = run_pipeline(scans.T.copy(), np.asarray(ds.odom).T.copy(),
+                       np.asarray(ds.u).T.copy(), p, verbose=False)
+    return dict(world_checksum=world_checksum(ds), x=out["x"].T,
+                x_init=out["x_init"].T, map=out["map"],
+                census=out["map"].shape[1], params=json.dumps(params_kw),
+                wall_seconds=time.time() - t0)
 
 
 def main():
@@ -353,6 +447,8 @@ def main():
         common, cases = GOLDENS[name]
         path = os.path.join(args.dir, name)
         out = {"jax_path": repr(common) if common else "default"}
+        if common == "oracle":
+            out = {"reference": "tests/oracle/reference_oracle.py"}
         if args.only is not None and os.path.exists(path):
             with np.load(path) as old:
                 out.update({k: old[k] for k in old.files
@@ -360,10 +456,15 @@ def main():
         for prefix, (world_kw, cfg_kw) in cases.items():
             if args.only is not None and prefix not in args.only:
                 continue
-            if world_kw is None:
+            if common == "oracle":
+                fields = make_oracle_case(world_kw, cfg_kw)
+            elif world_kw is None:
                 fields = make_cli_case(cfg_kw)
             elif isinstance(world_kw, list):
                 fields = make_fleet_case(world_kw, cfg_kw, common)
+                if name == "torch_fleet_modes_synth.npz":
+                    fields["overflow_message"] = overflow_message(
+                        FLEET_MODES[prefix], common)
             else:
                 fields = make_case(world_kw, cfg_kw, common)
             out.update({f"{prefix}_{k}": v for k, v in fields.items()})
