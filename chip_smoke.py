@@ -169,10 +169,31 @@ nonzero and the final line is not printed:
    and the ``ba`` fleet a second time: bitwise the first (the models'
    sums add in a fixed order, ``landmark_map.add_rows``).
 
+21. ``parallel/`` on the card, a process group of one rank: (a)
+   ``parallel.distributed.initialize()`` from the environment
+   (``ICM_COORDINATOR`` on a free local port, ``ICM_NUM_PROCESSES=1``,
+   ``ICM_PROCESS_ID=0``) forms an NCCL group; (b) worlds 0-3 of phase 18's
+   curve through ``run_batched(..., mesh=make_fleet_mesh())``: each world
+   bitwise phase 18's W=4 result, its ``pipeline_s`` beside phase 18's,
+   K1 exactly N times, the collectives it issued; (c) the T=1833 world's
+   init and filtered map from ``run(..., n_iters=0)``, then 3 sweeps of
+   ``refine_sweep_batched(..., mesh=make_mesh())`` on
+   ``shard_sweep_inputs(..., pad_to=8)`` (T padded to 1840, ``last_t``
+   1832), each followed by ``filter_map``, against 3 unsharded sweeps from
+   the same start: census exact, poses within 1e-3 (the difference
+   printed; bitwise expected), K1 exactly 3 times at (1840, 48, 128),
+   where it is first held against its plain version (its last 7 frames
+   all-masked, as the padding is);
+   launches, host syncs and collectives of a sharded sweep beside an
+   unsharded one; (d) ``pipeline_stages`` at one stage on the NCCL group,
+   exact; ``pipelined_refine_pass`` needs three ranks and is not run (its
+   line says so; tests/test_torch_parallel_pipeline.py holds it on gloo
+   CPU ranks).
+
 ``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
 package under ROOT (what each of those turns runs).
 
-Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20) counts the
+Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20, 21) counts the
 kernel launches with the counters set to 0 just before it and read just
 after; the kernels' JSON line sums them.  A ``wall_seconds`` line gives
 each phase's seconds (standard error has each as it ends).  Then the
@@ -366,7 +387,8 @@ KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k1", (4, 400, 104, 128), 96),
                  ("k2", (3, 1, 181, 256), 100),
                  ("k2", (3, 1, 16, 256), 104),
-                 ("k2", (3, 120, 16, 256), 108))
+                 ("k2", (3, 120, 16, 256), 108),
+                 ("k1", (1840, 48, 128), 112))
 # tables whose first K columns a kernel searches, as the paths pass them:
 # the non-quirk sweep's K2, and a fleet's K1 (the first map_run_cap
 # columns of each world's L)
@@ -1770,6 +1792,7 @@ def phase_fleet_curve(gf, smi):
             row["vs_run_merged_config"] = rows
             row["run_twice"] = "bitwise"
         emit(phase="fleet_curve", **row, card=smi)
+        row["results"] = res
         curve.append(row)
         launches[f"fleet_w{W}"] = n
         for key in n["shapes"]:
@@ -2305,6 +2328,175 @@ def phase_repeatable(ba_fleet, runs, closed):
          note="a second run against the first on the same card, bitwise")
 
 
+def phase_parallel_bringup():
+    """21 (a): ``parallel.distributed.initialize()`` from the environment
+    (``ICM_COORDINATOR`` on a free local port, one process): an NCCL group
+    of one rank on this card."""
+    import torch.distributed as dist
+    from icm_slam_tpu_torch.parallel import distributed as pd
+    from icm_slam_tpu_torch.parallel.mesh import _free_port
+    os.environ.update(ICM_COORDINATOR=f"localhost:{_free_port()}",
+                      ICM_NUM_PROCESSES="1", ICM_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    pd.initialize()
+    check(dist.is_initialized() and dist.get_backend() == "nccl",
+          "initialize() did not form an NCCL group")
+    out = dict(backend=dist.get_backend(), world_size=dist.get_world_size(),
+               rank=dist.get_rank(), primary=pd.is_primary(),
+               init_s=time.perf_counter() - t0)
+    emit(phase="parallel_bringup", **out)
+    return out
+
+
+def phase_parallel_fleet(curve, smi):
+    """21 (b): worlds 0-3 of phase 18's curve through ``run_batched`` on a
+    fleet mesh over the group: each world bitwise phase 18's W=4 result;
+    its pipeline_s against phase 18's, the collectives it issued."""
+    import numpy as np
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.parallel import mesh as pm
+    from icm_slam_tpu_torch.solver.icm import run_batched
+    row4 = next(r for r in curve if r["W"] == 4)
+    dss = [w[0] for w in fleet_worlds()[:4]]
+    mesh = pm.make_fleet_mesh()
+    pm.COLLECTIVES = 0
+    res, n = counted(lambda: run_batched(dss, ICMConfig(), "cuda",
+                                         mesh=mesh))
+    collectives = pm.COLLECTIVES
+    check(n["k1"] == 30 and n["k2"] == 0,
+          f"fleet mesh launched K1 {n['k1']}x, K2 {n['k2']}x; want 30, 0")
+    check(len(res) == 4, f"fleet mesh returned {len(res)} worlds")
+    for i, (a, b) in enumerate(zip(res, row4["results"])):
+        differ = [f for f in ("x_init", "x", "map_pos", "map_counts")
+                  if not np.array_equal(getattr(a, f), getattr(b, f))]
+        check(not differ, f"fleet mesh world {i}: {differ} differ from "
+                          f"phase 18's W=4")
+    t = res[0].timings
+    out = dict(W=4, mesh_size=mesh.size(), census=[r.map_pos.shape[0]
+                                                   for r in res],
+               vs_phase18_w4="bitwise", k1_launches=n["k1"],
+               collectives=collectives, pipeline_s=t["pipeline_s"],
+               pipeline_s_phase18_w4=row4["pipeline_s"],
+               per_world_s=t["per_world_s"],
+               refine_per_iter_s=t["refine_per_iter_s"],
+               refine_per_iter_s_phase18_w4=row4["refine_per_iter_s"])
+    emit(phase="parallel_fleet_mesh", **out, card=smi)
+    return n
+
+
+PAD_TO = 8
+
+
+def phase_parallel_time(smi):
+    """21 (c): the T=1833 world's init and filtered map from ``run()``,
+    then 3 sweeps of ``refine_sweep_batched(..., mesh=make_mesh())`` on
+    ``shard_sweep_inputs(..., pad_to=8)`` (T 1833 -> 1840, last_t 1832),
+    each followed by ``filter_map``, against 3 unsharded sweeps from the
+    same start: census exact, poses within 1e-3; the launches, host syncs
+    and collectives of one sweep each way."""
+    import numpy as np
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.mapping.landmark_map import filter_map
+    from icm_slam_tpu_torch.parallel import mesh as pm
+    from icm_slam_tpu_torch.solver import icm
+    from icm_slam_tpu_torch.solver.sweeps import refine_sweep_batched
+    # K1 at the padded shape against its plain version, the last 7 frames
+    # all-masked as the padding is
+    pts, mp, mask = shape_inputs("k1", (1840, 48, 128))
+    mask[1833:] = False
+    err = max(hold_k1(pts, mp, mask, k, 1.0, "(1840, 48, 128) padded")
+              for k in (0, 1, 7, 37, 128))
+    ds, _ = world_1833()
+    cfg = ICMConfig()
+    start = icm.run(ds, cfg, "cuda", n_iters=0)
+    data = icm.prepare(ds, cfg, "cuda")
+    cfg = icm.resolve_config(cfg, data)
+    w = weights(cfg, "cuda")
+    cur0 = map_of(start.map_pos, start.map_counts, cfg.L)
+    x0 = torch.from_numpy(start.x_init).cuda()
+    mesh = pm.make_mesh()
+    data_s, x_s0, T = pm.shard_sweep_inputs(mesh, data, x0, pad_to=PAD_TO)
+    check(T == 1833 and x_s0.shape[0] == 1840,
+          f"padding: T {T}, block {x_s0.shape[0]}")
+
+    def sharded(cur, xs):
+        st, xs = refine_sweep_batched(data_s, cur, xs, cfg, w, last_t=T - 1,
+                                      mesh=mesh)
+        return filter_map(st, cfg.cota, cfg.dist_thr,
+                          live_cap=cfg.map_run_cap), xs, st
+
+    def unsharded(cur, x):
+        st, x = refine_sweep_batched(data, cur, x, cfg, w)
+        return filter_map(st, cfg.cota, cfg.dist_thr,
+                          live_cap=cfg.map_run_cap), x, st
+
+    def three(step, x):
+        cur, census = cur0, []
+        for _ in range(3):
+            cur, x, st = step(cur, x)
+            census.append((int(st.nact), int(cur.nact)))
+        return cur, x, census
+
+    pm.COLLECTIVES = 0
+    (cur_s, x_s, census_s), n = counted(lambda: three(sharded, x_s0))
+    coll = pm.COLLECTIVES
+    x_s = pm.gather_time_sharded(mesh, x_s, T)
+    cur_u, x_u, census_u = three(unsharded, x0)
+    dx = float((x_s - x_u).abs().max())
+    dmap = float((cur_s.pos - cur_u.pos).abs().max())
+    check(census_s == census_u,
+          f"time mesh: census {census_s} != unsharded {census_u}")
+    check(dx <= 1e-3, f"time mesh: poses {dx} from the unsharded sweeps")
+    check(n["k1"] == 3 and n["k2"] == 0,
+          f"time mesh launched K1 {n['k1']}x, K2 {n['k2']}x; want 3, 0")
+    prof_s = launches_and_syncs(lambda: sharded(cur_s, x_s0))
+    prof_u = launches_and_syncs(lambda: unsharded(cur_u, x0))
+    pm.COLLECTIVES = 0
+    sharded(cur_s, x_s0)
+    out = dict(T=T, padded_T=int(x_s0.shape[0]), last_t=T - 1,
+               census_raw_and_filtered=census_s, poses_max_abs_diff=dx,
+               map_max_abs_diff=dmap, bitwise=dx == 0.0 and dmap == 0.0,
+               tolerance=1e-3, k1_launches=n["k1"],
+               k1_padded_vs_plain_sums_max_abs_err=err,
+               collectives_3_sweeps=coll,
+               collectives_a_sweep=pm.COLLECTIVES,
+               sharded_sweep=prof_s, unsharded_sweep=prof_u)
+    emit(phase="parallel_time_mesh", **out, card=smi)
+    # the live columns K1 met: the start's, then each filtered map's
+    seen = [int(cur0.nact)] + [c[1] for c in census_s[:2]]
+    return n, {("k1", (1840, 48, 128)): sorted(set(seen))}, err
+
+
+def phase_parallel_pipeline(smi):
+    """21 (d): ``pipeline_stages`` at S=1 on the NCCL group (the arithmetic
+    pipeline of tests/test_pipeline.py as one stage, six chunks), exact;
+    ``pipelined_refine_pass`` needs three ranks and does not run on one
+    card."""
+    import torch
+    import torch.distributed as dist
+    from icm_slam_tpu_torch.parallel import mesh as pm
+    from icm_slam_tpu_torch.parallel.pipeline import (make_stage_mesh,
+                                                      pipeline_stages)
+    chunks = torch.arange(24, dtype=torch.float32, device="cuda").view(6, 4)
+    mesh = make_stage_mesh(1)
+    pm.COLLECTIVES = 0
+    out = pipeline_stages(
+        mesh, [lambda c, p: {"v": (p["v"] + 1.0) * c["scale"] - 3.0}],
+        lambda c, i: {"v": chunks[i]}, 6,
+        {"scale": torch.tensor(2.0, device="cuda")})["v"]
+    check(torch.equal(out, (chunks + 1.0) * 2.0 - 3.0),
+          "pipeline_stages at S=1 differs from the composition")
+    emit(phase="parallel_pipeline", stages=1, chunks=6, exact=True,
+         collectives=pm.COLLECTIVES,
+         pipelined_refine_pass="not run on one card: its three stages "
+                               "need three ranks (tests/"
+                               "test_torch_parallel_pipeline.py holds it "
+                               "on three gloo CPU ranks)", card=smi)
+    dist.destroy_process_group()
+
+
 PARENT_ROOT = os.path.join(HERE, "build", "parent")
 
 
@@ -2399,7 +2591,10 @@ LAUNCHED_BY = {
                               "the small non-quirk fleet's causal init "
                               "(phase 20)"),
     ("k2", (3, 120, 16, 256)): ("modes_small_ba",
-                                "the small ba fleet, N=2 (phase 20)")}
+                                "the small ba fleet, N=2 (phase 20)"),
+    ("k1", (1840, 48, 128)): ("parallel_time",
+                              "the 3 time-sharded sweeps, T=1833 padded "
+                              "to 1840 (phase 21)")}
 
 
 def check_shapes_covered(launches):
@@ -2550,6 +2745,14 @@ def main():
         if len(key[1]) == 4:
             nacts[key] = sorted({min(counts), max(counts)})
     emit(phase="fleet_modes_wall_seconds", seconds=time.perf_counter() - t20)
+    t21 = time.perf_counter()
+    timed("parallel_bringup", phase_parallel_bringup)
+    n21b = timed("parallel_fleet", phase_parallel_fleet, curve, smi)
+    n21c, nacts21c, err21 = timed("parallel_time", phase_parallel_time, smi)
+    timed("parallel_pipeline", phase_parallel_pipeline, smi)
+    launches.update(parallel_fleet=n21b, parallel_time=n21c)
+    nacts.update(nacts21c)
+    emit(phase="parallel_wall_seconds", seconds=time.perf_counter() - t21)
     check_shapes_covered(launches)
     emit(phase="launches_by_shape", **{
         run: {f"{kind} {list(shape)}": c
@@ -2562,7 +2765,7 @@ def main():
                        for k in ("k1", "k2")}
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"],
                             fk["k2"], fmk["k2"])
-    k1["max_abs_err"] = max(k1["max_abs_err"], fk["k1"], fmk["k1"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], fk["k1"], fmk["k1"], err21)
 
     print(json.dumps({"kernels": kernels_line(
         launches, {"k1": k1, "k2": k2}, rows)}), flush=True)

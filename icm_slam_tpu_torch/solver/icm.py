@@ -11,7 +11,8 @@ observer sees the segment's state, as the fused JAX loop does.
 
 ``run_batched`` is fleet mode: W same-shape worlds through the engines at
 once, on a leading world axis (the JAX package's ``vmap``), so that W
-worlds cost the kernel launches of one.
+worlds cost the kernel launches of one; with a fleet mesh its worlds are
+sharded over the ranks of a process group.
 """
 from __future__ import annotations
 
@@ -438,13 +439,17 @@ def _stack(items):
     return type(items[0])(*(torch.stack(f) for f in zip(*items)))
 
 
-def prepare_fleet(datasets, config: ICMConfig, device):
+def prepare_fleet(datasets, config: ICMConfig, device, worlds=None):
     """Prepare and seed each world on the host, then stack them: returns
     (data, seed, x0, merged config, weights), data and seed with a leading
     world axis W and x0 (W, 3), all on ``device``, as the batched engine
-    takes a fleet."""
+    takes a fleet.  ``worlds`` (indices into ``datasets``, repeats allowed)
+    stacks only those; the config is merged over every world."""
     datas = [prepare(ds, config, device) for ds in datasets]
     config = resolve_fleet_config(config, datas)
+    if worlds is not None:
+        datasets = [datasets[i] for i in worlds]
+        datas = [datas[i] for i in worlds]
     dtype = datas[0].dist.dtype
     x0 = torch.stack([torch.as_tensor(np.asarray(ds.x0), device=device).to(
         dtype) for ds in datasets])
@@ -470,23 +475,40 @@ def run_batched(datasets, config: ICMConfig, device,
     (init to the last sweep) and ``per_world_s``.
 
     Every world has the same (T, n_beams) shape and runs under the merged
-    config of ``resolve_fleet_config``.  ``mesh`` raises
-    NotImplementedError: sharding a fleet over devices is the port's
-    ``parallel/``, its next slice.  Without a mesh nothing is padded.
+    config of ``resolve_fleet_config``.
+
+    ``mesh``: a fleet mesh (``parallel.mesh.make_fleet_mesh``) shards the
+    worlds over its ranks.  Every rank calls this with all W worlds and
+    merges the config over all of them; W is padded to a multiple of the
+    mesh size by repeating the last world, and rank r runs the r-th block
+    through the engine above on its own (worlds exchange nothing).  Then
+    the per-world outputs go to every rank, one ``all_gather`` each, the
+    padded worlds are dropped, and every rank checks every world's
+    witnesses and returns the whole list (a world's result is the
+    unsharded fleet's, bit for bit); the init, hoist and refine timings
+    are the rank's own, and ``pipeline_s`` ends after the gather.
     """
     if not datasets:
         return []
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_batched(mesh=...): sharding a fleet over devices needs the "
-            "port's parallel/ (torch.distributed), its next slice")
     check_supported(config)
     device = resolve_device(device)
     n_iters = config.N if n_iters is None else n_iters
+    W = len(datasets)
     timings = {}
 
+    worlds = None
+    if mesh is not None:
+        from icm_slam_tpu_torch.parallel.mesh import FLEET_AXIS, check_axis
+        check_axis(mesh, FLEET_AXIS)
+        if mesh.device_type != device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run a fleet "
+                             f"on {device}")
+        per = -(-W // mesh.size())
+        r = mesh.get_local_rank()
+        worlds = [min(i, W - 1) for i in range(r * per, (r + 1) * per)]
     t0 = time.perf_counter()
-    data, seed, x0, config, w = prepare_fleet(datasets, config, device)
+    data, seed, x0, config, w = prepare_fleet(datasets, config, device,
+                                              worlds)
     _sync(device)
     timings["prepare_s"] = time.perf_counter() - t0
 
@@ -513,18 +535,24 @@ def run_batched(datasets, config: ICMConfig, device,
     _sync(device)
     timings["refine_s"] = time.perf_counter() - t0
     timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
-    timings["pipeline_s"] = time.perf_counter() - t_pipe
-    timings["per_world_s"] = timings["pipeline_s"] / len(datasets)
 
-    init_wit = init_wit.cpu().numpy()
-    wits = (torch.stack(wits, dim=1).cpu().numpy() if wits
-            else np.zeros((len(datasets), 0, 2), np.int32))
+    wits = (torch.stack(wits, dim=1) if wits
+            else init_wit.new_zeros((init_wit.shape[0], 0, 2)))
+    out = [x_init, x, cur_map.pos, cur_map.counts, cur_map.nact, init_wit,
+           wits]
+    if mesh is not None:
+        from icm_slam_tpu_torch.parallel.mesh import gather_blocks
+        out = [gather_blocks(mesh, a)[:W] if a.numel() else
+               a.new_zeros((W,) + tuple(a.shape[1:])) for a in out]
+        _sync(device)
+    timings["pipeline_s"] = time.perf_counter() - t_pipe
+    timings["per_world_s"] = timings["pipeline_s"] / W
+
+    x_init, x, pos, counts, nacts, init_wit, wits = (a.cpu().numpy()
+                                                     for a in out)
     merge_cap = _init_merge_cap(config)
-    x_init, x = x_init.cpu().numpy(), x.cpu().numpy()
-    pos, counts = cur_map.pos.cpu().numpy(), cur_map.counts.cpu().numpy()
-    nacts = cur_map.nact.cpu().numpy()
     results = []
-    for wdx in range(len(datasets)):
+    for wdx in range(W):
         check_witness(init_wit[wdx], config, f"init sweep (world {wdx})",
                       init_merge_cap=merge_cap)
         for k in range(n_iters):

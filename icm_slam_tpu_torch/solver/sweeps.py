@@ -610,7 +610,8 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
 # batched refinement sweep
 # ---------------------------------------------------------------------------
 
-def batched_associate(data: SweepData, old_map: MapState, x, config):
+def batched_associate(data: SweepData, old_map: MapState, x, config,
+                      mesh=None):
     """Associate every frame against the frozen map in one batched pass.
 
     ``data`` has per-frame (T, B) ``ang``.  Returns (labels (T, B) int32
@@ -622,11 +623,19 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
     kernel searches the columns and the gate compares the distance.  A
     fleet (``x`` (W, T, 3), ``data`` and ``old_map`` with the world axis)
     is one kernel launch for all W worlds.
+
+    On a time mesh (``mesh``, ``parallel.mesh.make_mesh``) ``data`` and
+    ``x`` are this rank's block of frames (``shard_sweep_inputs``): the
+    labels and running means are the block's, numbered and summed after
+    every earlier frame on every earlier rank, and the map is the whole
+    trajectory's, the same on every rank.
     """
     if x.dim() == 2:
         lab, final, matched = batched_associate(
-            with_world_axis(data), with_world_axis(old_map), x[None], config)
+            with_world_axis(data), with_world_axis(old_map), x[None], config,
+            mesh)
         return lab[0], world(final), matched[0]
+    blk = _time_block(mesh, x.shape[1])
     L = old_map.pos.shape[-2]
     dist_thr = config.dist_thr
     cap_l = config.map_run_cap if 0 < config.map_run_cap < L else 0
@@ -634,7 +643,7 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
     pts = beams_to_world(x, data.dist, data.ang)             # (W, T, B, 2)
     if not config.replicate_new_obs_quirk:
         return _associate_components(data, old_map, pts, config,
-                                     cap_l or L)
+                                     cap_l or L, blk)
     if cap_l:
         lab_n, d2min, sums = associate_and_sums(
             pts, old_map.pos[:, :cap_l], data.mask, old_map.nact, dist_thr)
@@ -648,21 +657,41 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
     has_far = far.any(dim=-1)                                 # (W, T)
     # frame t's new label = nact0 + (#frames of its world before t that
     # spawned one)
-    new_id = old_map.nact[:, None] + torch.cumsum(has_far, 1,
-                                                  dtype=torch.int32) - 1
+    spawned, n_new = _frame_scan(has_far, blk, torch.int32)
+    new_id = old_map.nact[:, None] + spawned - 1
     lab = torch.where(far, new_id[..., None], lab)
-    n_new = has_far.sum(dim=1).to(torch.int32)
     if cap_l:
         final, matched = _running_means_capped(
             pts, data.mask, lab, far, has_far, new_id, sums, old_map, n_new,
-            cap_l)
+            cap_l, blk)
     else:
-        final, matched = _running_means_full(pts, lab, old_map, n_new)
+        final, matched = _running_means_full(pts, lab, old_map, n_new, blk)
     return lab, final, matched
 
 
+def _time_block(mesh, T: int):
+    """This rank's ``parallel.mesh.TimeBlock`` of T frames on a time mesh;
+    None without one."""
+    if mesh is None:
+        return None
+    from icm_slam_tpu_torch.parallel.mesh import TimeBlock
+    return TimeBlock(mesh, T)
+
+
+def _frame_scan(a, blk, dtype=None):
+    """The inclusive cumulative sum of ``a`` (W, T, ...) along the frames
+    and its total over all frames (W, ...).  On a time mesh (``blk``) the
+    frames of the earlier ranks come first: their sum is added to the
+    block's, and the total is every rank's, summed in rank order."""
+    c = torch.cumsum(a, dim=1, dtype=dtype)
+    if blk is None:
+        return c, c[:, -1]
+    pre, total = blk.scan(c[:, -1])
+    return (c if pre is None else c + pre.unsqueeze(1)), total
+
+
 def _associate_components(data: SweepData, old_map: MapState, pts, config,
-                          Lr):
+                          Lr, blk=None):
     """The non-quirk branch of ``batched_associate``: far beams of each
     frame split into connected components at dist_thr, labelled from
     ``nact + cumsum(k) - k`` (k = the frame's component count, summed
@@ -682,19 +711,21 @@ def _associate_components(data: SweepData, old_map: MapState, pts, config,
         connected_component_labels(pts, fm, config.dist_thr), fm, B)
     k = torch.where(fm.any(dim=-1),
                     torch.where(fm, comp, -1).amax(dim=-1) + 1, 0)
-    base = old_map.nact[:, None] + torch.cumsum(k, 1, dtype=torch.int32) - k
+    ck, n_new = _frame_scan(k, blk, torch.int32)
+    base = old_map.nact[:, None] + ck - k
     lab = torch.where(far, base[..., None] + comp, lab)
-    n_new = k.sum(dim=1).to(torch.int32)
-    final, matched = _running_means_full(pts, lab, old_map, n_new)
+    final, matched = _running_means_full(pts, lab, old_map, n_new, blk)
     return lab, final, matched
 
 
 def _running_means_capped(pts, mask, lab, far, has_far, new_id, sums,
-                          old_map, n_new, cap_l):
+                          old_map, n_new, cap_l, blk=None):
     """Running means from the kernel's per-frame old-landmark sums.
 
     A new landmark only receives observations from its creating frame, so
     its running mean is that frame's far-beam mean; old labels are < cap_l.
+    On a time mesh each new column is one rank's frame: every rank's
+    frames are gathered and written in global order.
     """
     W, L = old_map.counts.shape
     dtype, dev = pts.dtype, pts.device
@@ -704,7 +735,7 @@ def _running_means_capped(pts, mask, lab, far, has_far, new_id, sums,
                          (pts[..., 1] * far_w).sum(dim=-1)], dim=-1) \
         / torch.clamp(fcnt, min=1.0)[..., None]               # (W, T, 2)
 
-    cums = torch.cumsum(sums, dim=1)                          # (W, T, 3, cap)
+    cums, total = _frame_scan(sums, blk)          # (W, T, 3, cap), (W, 3, cap)
     cum_cnt = cums[:, :, 2]
     denom = torch.clamp(cum_cnt, min=1.0)
     run_x = cums[:, :, 0] / denom
@@ -717,39 +748,77 @@ def _running_means_capped(pts, mask, lab, far, has_far, new_id, sums,
 
     # final table: old columns from the cumulative sums, new columns from
     # the per-frame far means; row L is the discard row
-    live_last = cum_cnt[:, -1] > 0
+    live_last = total[:, 2] > 0
+    denom_last = torch.clamp(total[:, 2], min=1.0)
     pos = torch.zeros((W, L + 1, 2), dtype=dtype, device=dev)
-    pos[:, :cap_l] = torch.stack([run_x[:, -1], run_y[:, -1]], dim=-1) \
+    pos[:, :cap_l] = torch.stack([total[:, 0] / denom_last,
+                                  total[:, 1] / denom_last], dim=-1) \
         * live_last[..., None]
     counts = torch.zeros((W, L + 1), dtype=dtype, device=dev)
-    counts[:, :cap_l] = cum_cnt[:, -1]
+    counts[:, :cap_l] = total[:, 2]
+    new_row = torch.clamp(torch.where(has_far, new_id, L), 0, L)
+    if blk is not None:
+        # the ids (< 2^24) travel with the means as float32
+        every = blk.frames(torch.cat([fmean, fcnt[..., None],
+                                      new_row[..., None].to(dtype)], -1))
+        fmean, fcnt, new_row = (every[..., :2], every[..., 2],
+                                every[..., 3].to(new_row.dtype))
     # each world's rows L + 1 apart in the flat table: one index a frame
-    scatter_id = (torch.clamp(torch.where(has_far, new_id, L), 0, L).long()
+    scatter_id = (new_row.long()
                   + torch.arange(W, device=dev)[:, None] * (L + 1))
     pos.view(-1, 2)[scatter_id.reshape(-1)] = fmean.reshape(-1, 2)
     counts.view(-1)[scatter_id.reshape(-1)] = fcnt.reshape(-1)
     return MapState(pos[:, :L], counts[:, :L], old_map.nact + n_new), matched
 
 
-def _running_means_full(pts, lab, old_map, n_new):
+def _running_means_full(pts, lab, old_map, n_new, blk=None):
     """Running means over all L columns by per-frame segment sums."""
     L = old_map.pos.shape[-2]
     w = (lab < L).to(pts.dtype)
     sx, sy, cnts = _frame_sums(pts[..., 0], pts[..., 1], lab, w, L)
-    cum_cnt = torch.cumsum(cnts, dim=1)                       # (W, T, L)
+    cum_cnt, total_cnt = _frame_scan(cnts, blk)               # (W, T, L)
+    cum_sx, total_sx = _frame_scan(sx, blk)
+    cum_sy, total_sy = _frame_scan(sy, blk)
     denom = torch.clamp(cum_cnt, min=1.0)
-    run_x = torch.cumsum(sx, dim=1) / denom
-    run_y = torch.cumsum(sy, dim=1) / denom
+    run_x = cum_sx / denom
+    run_y = cum_sy / denom
     lab_c = torch.clamp(lab, 0, L - 1).long()
     matched = torch.stack([torch.gather(run_x, -1, lab_c),
                            torch.gather(run_y, -1, lab_c)], dim=-1)
-    live_last = cum_cnt[:, -1] > 0
-    final_pos = torch.stack([run_x[:, -1], run_y[:, -1]], dim=-1) \
-        * live_last[..., None]
-    return MapState(final_pos, cum_cnt[:, -1], old_map.nact + n_new), matched
+    live_last = total_cnt > 0
+    denom_last = torch.clamp(total_cnt, min=1.0)
+    final_pos = torch.stack([total_sx / denom_last, total_sy / denom_last],
+                            dim=-1) * live_last[..., None]
+    return MapState(final_pos, total_cnt, old_map.nact + n_new), matched
 
 
-def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None):
+class _Neighbours(NamedTuple):
+    """Where a sweep reads the neighbours t - 1 and t + 1 of its frames:
+    ``x``, ``u`` and ``odom`` (W, T, ...) themselves, or on a time mesh
+    (``halo``) the block's arrays between the neighbour ranks' edge frames
+    (``parallel.mesh.TimeBlock.halo``), local frame j at j + 1.  ``start``
+    is the global index of local frame 0, ``total`` the global frame
+    count."""
+    x: torch.Tensor
+    u: torch.Tensor
+    odom: torch.Tensor
+    start: int
+    total: int
+    halo: bool = False
+
+    def at(self, g):
+        """Indices into ``x``, ``u``, ``odom`` of the global frames ``g``
+        (a tensor, or an int); a frame outside the halo reads its edge."""
+        if not self.halo:
+            return g
+        top = self.x.shape[1] - 1
+        if isinstance(g, int):
+            return min(max(g + 1 - self.start, 0), top)
+        return torch.clamp(g + (1 - self.start), 0, top)
+
+
+def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None,
+                  nb: _Neighbours = None):
     """Two-sided LM solves for the poses ``ts`` (K,) of every world, as one
     batch of W * K problems; returns (W, K, 3).
 
@@ -758,28 +827,34 @@ def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None):
     of the analytic Jacobian) leaves exactly the one-sided system, and its
     start point is the kinematic prediction (ICM_ROS.py:153-156, 254-260).
     That needs the default [forward (6), one-sided] stacking; without
-    ``last_t`` every pose takes the plain two-sided cost.
+    ``last_t`` every pose takes the plain two-sided cost.  ``nb`` says
+    where the neighbours are read (a time mesh's halo; ``x`` itself
+    without), and ``last_t`` is a global frame index.
     """
     W, T = x.shape[:2]
+    if nb is None:
+        nb = _Neighbours(x, data.u, data.odom, 0, T)
     model = _model_of(config)
     dist_c, ang_c, mask_c, matched_c = obs
-    tm1 = torch.clamp(ts - 1, min=0)
-    tp1 = torch.clamp(ts + 1, max=T - 1)
+    gts = ts if nb.start == 0 else ts + nb.start
+    tm1 = nb.at(torch.clamp(gts - 1, min=0))
+    tp1 = nb.at(torch.clamp(gts + 1, max=nb.total - 1))
 
     def at(a, i):
         return _flat(a[:, i])
 
     prob = PoseProblem(
         dist=at(dist_c, ts), ang=at(ang_c, ts), mask=at(mask_c, ts),
-        matched=at(matched_c, ts), x_prev=at(x, tm1), u_prev=at(data.u, tm1),
-        odo_prev=at(data.odom, tm1), odo_cur=at(data.odom, ts),
-        x_next=at(x, tp1), u_cur=at(data.u, ts), odo_next=at(data.odom, tp1))
+        matched=at(matched_c, ts), x_prev=at(nb.x, tm1),
+        u_prev=at(nb.u, tm1), odo_prev=at(nb.odom, tm1),
+        odo_cur=at(data.odom, ts), x_next=at(nb.x, tp1), u_cur=at(data.u, ts),
+        odo_next=at(nb.odom, tp1))
     resid2, jac2 = _two_sided(prob, w, config)
     x_init = (prob.x_prev + prob.x_next) / 2.0
     if last_t is None:
         return lm_minimize(resid2, jac2, x_init,
                            iters=config.pose_gn_iters).view(W, -1, 3)
-    is_last = (ts == last_t).repeat(W)[:, None]
+    is_last = (gts == last_t).repeat(W)[:, None]
     x_init = torch.where(
         is_last, model.kinematics(prob.x_prev, prob.u_prev, config.deltat),
         x_init)
@@ -794,30 +869,35 @@ def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None):
                        x_init, iters=config.pose_gn_iters).view(W, -1, 3)
 
 
-def _solve_one_at(data: SweepData, x, obs, config, w, t: int):
+def _solve_one_at(data: SweepData, x, obs, config, w, t: int,
+                  nb: _Neighbours = None):
     """One-sided LM solves (W, 3) of frame ``t`` (the trajectory's last) of
     every world from its kinematic prediction, against the current ``x``;
-    given one world ((T, 3) poses), its solve (3,)."""
+    given one world ((T, 3) poses), its solve (3,).  ``t`` is global; on a
+    time mesh (``nb``) the rank that holds it calls this."""
     if x.dim() == 2:
         return _solve_one_at(with_world_axis(data), x[None],
                              tuple(a[None] for a in obs), config, w, t)[0]
+    if nb is None:
+        nb = _Neighbours(x, data.u, data.odom, 0, x.shape[1])
     dist_c, ang_c, mask_c, matched_c = obs
     W = x.shape[0]
-    tm1 = max(t - 1, 0)
+    j = t - nb.start
+    tm1 = nb.at(max(t - 1, 0))
     z3 = torch.zeros((W, 3), dtype=x.dtype, device=x.device)
     prob = PoseProblem(
-        dist=dist_c[:, t], ang=ang_c[:, t], mask=mask_c[:, t],
-        matched=matched_c[:, t], x_prev=x[:, tm1], u_prev=data.u[:, tm1],
-        odo_prev=data.odom[:, tm1], odo_cur=data.odom[:, t], x_next=z3,
+        dist=dist_c[:, j], ang=ang_c[:, j], mask=mask_c[:, j],
+        matched=matched_c[:, j], x_prev=nb.x[:, tm1], u_prev=nb.u[:, tm1],
+        odo_prev=nb.odom[:, tm1], odo_cur=data.odom[:, j], x_next=z3,
         u_cur=z3[:, :2], odo_next=z3)
-    x_init = _model_of(config).kinematics(x[:, tm1], data.u[:, tm1],
+    x_init = _model_of(config).kinematics(nb.x[:, tm1], nb.u[:, tm1],
                                           config.deltat)
     return lm_minimize(*_one_sided(prob, w, config), x_init,
                        iters=config.pose_gn_iters)
 
 
 def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
-                         last_t: int | None = None
+                         last_t: int | None = None, mesh=None
                          ) -> Tuple[MapState, torch.Tensor]:
     """One ICM sweep: batched association, then ``pose_passes`` red-black
     half-pass pairs or, with ``pose_update="jacobi"``, full Jacobi passes
@@ -828,15 +908,23 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
     solved on its own and written into its slot of the batch.  A fleet
     (``x`` (W, T, 3), ``data`` and ``old_map`` with the world axis) solves
     every world's poses of a half-pass in one LM batch.
+
+    On a time mesh (``mesh``, ``parallel.mesh.make_mesh``) ``data`` and
+    ``x`` are this rank's block of frames (``parallel.mesh.
+    shard_sweep_inputs``), ``last_t`` and the red-black parity count
+    global frames, and each pass first reads the neighbour ranks' edge
+    poses (a halo); the rank returns the whole trajectory's map and its
+    block of poses.  Without a mesh nothing crosses ranks.
     """
     if x.dim() == 2:
         final_map, x = refine_sweep_batched(
             with_world_axis(data), with_world_axis(old_map), x[None], config,
-            w, last_t)
+            w, last_t, mesh)
         return world(final_map), x[0]
     T = x.shape[1]
+    blk = _time_block(mesh, T)
     if last_t is None:
-        last_t = T - 1
+        last_t = (T if blk is None else blk.total) - 1
     empty = ~data.mask.any(dim=-1)                            # (W, T)
 
     cap = config.obs_cap if config.obs_cap else data.dist.shape[-1]
@@ -844,33 +932,58 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
         data_c = compact_data(data, cap)
     else:
         data_c = _per_frame_ang(data)
-    _, final_map, matched = batched_associate(data_c, old_map, x, config)
+    _, final_map, matched = batched_associate(data_c, old_map, x, config,
+                                              mesh)
     obs = (data_c.dist, data_c.ang, data_c.mask, matched)
     model = _model_of(config)
     fold_last = model.two_sided is None and model.extra_two_sided is None
 
-    def solve_at(x, ts, start, stride):
-        """Solve the poses ``ts`` = start, start + stride, ... < T."""
+    if blk is None:
+        def neighbours(x):
+            return _Neighbours(x, data.u, data.odom, 0, T)
+    else:
+        # the controls and odometry of the edge frames once a sweep, the
+        # poses before every pass
+        uo = blk.halo(torch.cat([data.u, data.odom], dim=-1))
+
+        def neighbours(x):
+            return _Neighbours(blk.halo(x), uo[..., :2], uo[..., 2:],
+                               blk.start, blk.total, halo=True)
+
+    def frames(start, stride):
+        """The block's frames start, start + stride, ... (global numbering):
+        (local indices, global indices, the first local index)."""
+        s = 0 if blk is None else blk.start
+        first = start - s if start >= s else (start - s) % stride
+        ts = torch.arange(first, T, stride, device=x.device)
+        return ts, (ts if s == 0 else ts + s), first
+
+    def solve_at(x, sel, start, stride):
+        """Solve the poses ``sel`` = ``frames(start, stride)``."""
+        ts, gts, first = sel
+        nb = neighbours(x)
+        if ts.numel() == 0:
+            return x
         cand = _solve_two_at(data, x, obs, config, w, ts,
-                             last_t if fold_last else None)
+                             last_t if fold_last else None, nb)
         if not fold_last and last_t >= start \
-                and (last_t - start) % stride == 0:
-            cand[:, (last_t - start) // stride] = _solve_one_at(
-                data, x, obs, config, w, last_t)
-        tm1 = torch.clamp(ts - 1, min=0)
-        tp1 = torch.clamp(ts + 1, max=last_t)
-        x_avg = (x[:, tm1] + x[:, tp1]) / 2.0
+                and (last_t - start) % stride == 0 \
+                and nb.start <= last_t < nb.start + T:
+            cand[:, (last_t - nb.start - first) // stride] = _solve_one_at(
+                data, x, obs, config, w, last_t, nb)
+        tm1 = nb.at(torch.clamp(gts - 1, min=0))
+        tp1 = nb.at(torch.clamp(gts + 1, max=last_t))
+        x_avg = (nb.x[:, tm1] + nb.x[:, tp1]) / 2.0
         cand = torch.where(empty[:, ts][..., None], x_avg, cand)
-        cand = torch.where((ts <= last_t)[:, None], cand, x[:, ts])
+        cand = torch.where((gts <= last_t)[:, None], cand, x[:, ts])
         return x.index_copy(1, ts, cand)
 
     if config.pose_update == "jacobi":
-        every = torch.arange(1, T, device=x.device)
+        every = frames(1, 1)
         for _ in range(config.pose_passes):
             x = solve_at(x, every, 1, 1)
         return final_map, x
-    odd = torch.arange(1, T, 2, device=x.device)
-    even = torch.arange(2, T, 2, device=x.device)
+    odd, even = frames(1, 2), frames(2, 2)
     for _ in range(config.pose_passes):
         x = solve_at(x, odd, 1, 2)
         x = solve_at(x, even, 2, 2)

@@ -194,14 +194,22 @@ def test_a_worlds_overflow_is_named_as_jax_names_it():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh="mesh")], ids=["mesh"])
-def test_what_fleet_mode_lacks_raises(kw):
-    """Sharding a fleet over devices (``mesh``) waits for the port's
-    ``parallel/``; every configuration is tests/test_torch_fleet_modes.py's."""
-    worlds = [synthetic_world(T=20, n_landmarks=4, seed=s) for s in (0, 1)]
-    mesh = kw.pop("mesh", None)
-    cfg = TC(L=256, N=1, **kw)
-    with pytest.raises(NotImplementedError):
-        ticm.run_batched(worlds, cfg, "cpu", mesh=mesh)
+def test_what_fleet_mode_lacks_raises(kw, tmp_path):
+    """Fleet mode lacks nothing JAX's takes: ``mesh`` shards the fleet over
+    the ranks of a process group (``parallel.mesh.make_fleet_mesh``), and
+    on a group of one rank (spawned, tests/torch_dist_workers.py) it
+    returns the unsharded fleet, bit for bit; every configuration is
+    tests/test_torch_fleet_modes.py's, the multi-rank meshes
+    tests/test_torch_parallel.py's."""
+    from tests import torch_dist_workers as tw
+    assert kw == dict(mesh="mesh")
+    got = tw.spawn(tw.one_rank_fleet_worker, 1, tmp_path, 2)[0]
+    ref = ticm.run_batched(tw.fleet_worlds(2, T=20, n_landmarks=4),
+                           tw.fleet_config(N=1), "cpu")
+    assert len(got) == len(ref) == 2
+    for r, g in zip(ref, got):
+        for a, b in zip((r.x_init, r.x, r.map_pos, r.map_counts), g):
+            assert np.array_equal(a, b)
 
 
 # --- the world axis under the fleet ------------------------------------------

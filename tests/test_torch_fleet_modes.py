@@ -141,8 +141,10 @@ def test_a_worlds_overflow_is_named_as_jax_names_it(mode, golden):
 
 
 def test_mesh_still_raises_naming_parallel():
+    """``mesh`` runs (tests/test_torch_parallel.py); what is not a fleet
+    mesh raises before any work, naming the parallel/ maker it wants."""
     worlds = [synthetic_world(T=20, n_landmarks=4, seed=s) for s in (0, 1)]
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(ValueError, match="parallel.mesh.make_fleet_mesh"):
         ticm.run_batched(worlds, TC(L=256, N=1), "cpu", mesh="mesh")
 
 

@@ -131,6 +131,9 @@ def test_port_imports_no_jax():
         "import icm_slam_tpu_torch.models.windowed_ba\n"
         "import icm_slam_tpu_torch.models.loop_closure\n"
         "import icm_slam_tpu_torch.models.pose_graph\n"
+        "import icm_slam_tpu_torch.parallel.distributed\n"
+        "import icm_slam_tpu_torch.parallel.mesh\n"
+        "import icm_slam_tpu_torch.parallel.pipeline\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
@@ -140,6 +143,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert 'icm_slam_tpu_torch.models.loop_closure' in sys.modules\n"
         "assert 'icm_slam_tpu_torch.runtime.ingest' in sys.modules\n"
+        "assert {'icm_slam_tpu_torch.parallel.' + m for m in"
+        " ('distributed', 'mesh', 'pipeline')} <= set(sys.modules)\n"
         "from icm_slam_tpu_torch.solver.icm import run_batched\n"
         "from icm_slam_tpu_torch.api import run_batched as api_rb\n"
         "assert api_rb is run_batched\n"

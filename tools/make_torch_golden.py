@@ -96,6 +96,14 @@ each case also holds ``overflow_message``, the error JAX's fleet raises
 in that configuration when one of its worlds overflows the table
 (``OVERFLOW_WORLDS`` with ``ICMConfig(N=1, L=12, cota=2)``).
 
+``torch_parallel_synth.npz`` (JAX ``run_batched`` on a fleet mesh of
+two of the host's virtual CPU devices, ``parallel.mesh.make_fleet_mesh``,
+JAX's default paths, ~15 s): ``mesh3_`` — the first three worlds of
+``torch_fleet_modes_synth.npz`` (s = 7, 10, 11), ``ICMConfig(N=2, L=256,
+cota=5)``, W=3 padded to four lanes; its fields as in
+``torch_fleet_synth.npz``.  The far end of tests/test_torch_parallel.py's
+fleet-mesh cases.
+
 ``torch_oracle_synth.npz`` (``tests/oracle/reference_oracle.run_pipeline``,
 the reference's algorithm in NumPy, ~1 min a world): ``o<s>_`` for
 ``synthetic_world(T=150, n_landmarks=10, seed=s)``, s in 0, 1, 4, with
@@ -181,6 +189,8 @@ GOLDENS = {
         dict(use_pallas_fused_assoc=True),
         {k: (_MODES_WORLDS, dict(_MODES_CFG, **kw))
          for k, kw in FLEET_MODES.items()}),
+    "torch_parallel_synth.npz": (
+        {}, {"mesh3": (_MODES_WORLDS, dict(_MODES_CFG, mesh=2))}),
     "torch_oracle_synth.npz": (
         "oracle", {f"o{s}": (dict(ORACLE_WORLD, seed=s), ORACLE_PARAMS)
                    for s in ORACLE_SEEDS}),
@@ -372,15 +382,21 @@ def make_fleet_case(worlds_kw, cfg_kw, common):
     datasets = [ds for ds, _, _ in worlds]
     cfg_kw = dict(cfg_kw)
     model = cfg_kw.pop("model", None)
+    n_mesh = cfg_kw.pop("mesh", None)
     cfg = ICMConfig(**cfg_kw, **common,
                     model=None if model is None else MODELS[model]())
     merged = resolve_fleet_config(cfg, [prepare(ds, cfg) for ds in datasets])
+    mesh = None
+    if n_mesh:
+        import jax
+        from icm_slam_tpu.parallel.mesh import make_fleet_mesh
+        mesh = make_fleet_mesh(jax.devices(), n_mesh)
     t0 = time.time()
-    results = run_batched(datasets, cfg)
+    results = run_batched(datasets, cfg, mesh=mesh)
     dt = time.time() - t0
     fields = dict(obs_cap=merged.obs_cap, map_run_cap=merged.map_run_cap,
                   worlds=json.dumps(worlds_kw), wall_seconds=dt,
-                  config=json.dumps(cfg_kw),
+                  config=json.dumps(cfg_kw), mesh_devices=n_mesh or 0,
                   census=np.array([r.map_pos.shape[0] for r in results]))
     if model is not None:
         fields["model"] = model
@@ -440,6 +456,9 @@ def main():
     ap.add_argument("--dir", default=os.path.join(REPO, "tests", "golden"))
     args = ap.parse_args()
 
+    # virtual CPU devices for the fleet mesh (as tests/conftest.py)
+    os.environ.setdefault("XLA_FLAGS",
+                          "--xla_force_host_platform_device_count=8")
     import jax
     jax.config.update("jax_platforms", "cpu")
 
