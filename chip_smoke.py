@@ -190,10 +190,31 @@ nonzero and the final line is not printed:
    line says so; tests/test_torch_parallel_pipeline.py holds it on gloo
    CPU ranks).
 
-``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
-package under ROOT (what each of those turns runs).
+22. the profiling and plotting modules around the main path: (a)
+   ``api.run_offline(world, ICMConfig(N=3), "cuda", live_plot=recorder)`` on
+   the T=1833 world (a recorder with ``LivePlot.update``'s signature: the
+   card's machine has no matplotlib): exactly 3 updates of NumPy (1833, 3)
+   poses and (n, 2) landmarks, the last bitwise the result, the result
+   bitwise the run without the live plot (runs in turns live, plain, plain,
+   live, each ``refine_per_iter_s`` printed), K1 exactly 3 times; (c)
+   ``PhaseTimer`` around 100 launches of K2 at (4, 1833, 104, 1024) with
+   ``block_on`` reads at least 0.9 of their CUDA-event time (the phase
+   without it beside); then, as processes at once: (b)
+   ``utils.profiling.device_trace`` of one refine sweep + map filter
+   (``--trace-sweep``, a process of its own) into build/chip_smoke/trace/:
+   its kernel events within 1% of the profiler's launch count for the same
+   sweep, K1 once, the file's size and its export's seconds; (d) ``python -m
+   icm_slam_tpu_torch run --dataset synthetic --frames 200 --iters 1 --plot
+   DIR``: without matplotlib it exits non-zero naming it and prints no
+   summary, with it both PNGs are over 1,000 bytes (the branch taken is
+   printed); (e) examples_torch/06_fleet_mode.py and 02_online_streaming.py
+   (200 frames) with ``--device cuda``: exit 0 and a census.
 
-Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20, 21) counts the
+``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
+package under ROOT (what each of those turns runs); ``--trace-sweep``
+runs phase 22 (b).
+
+Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20-22) counts the
 kernel launches with the counters set to 0 just before it and read just
 after; the kernels' JSON line sums them.  A ``wall_seconds`` line gives
 each phase's seconds (standard error has each as it ends).  Then the
@@ -2497,6 +2518,279 @@ def phase_parallel_pipeline(smi):
     dist.destroy_process_group()
 
 
+# phase 22: the trace of one sweep goes here (build/ is not committed)
+TRACE_DIR = os.path.join(WORK, "trace")
+
+
+class PlotRecorder:
+    """Has ``utils.viz.LivePlot``'s ``update``: keeps what each call got
+    (the card's machine has no matplotlib)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def update(self, x, landmarks, odom=None):
+        self.calls.append((x, landmarks, odom))
+
+
+def phase_live_plot(smi):
+    """22 (a): ``api.run_offline(world, ICMConfig(N=3), "cuda",
+    live_plot=recorder)`` on the T=1833 world: exactly 3 updates of NumPy
+    (1833, 3) poses and (n, 2) landmarks, the last one bitwise the result,
+    the result bitwise the same call without the live plot; the runs in
+    turns live, plain, plain, live, ``refine_per_iter_s`` of each."""
+    import numpy as np
+    from icm_slam_tpu_torch import api
+    from icm_slam_tpu_torch.config import ICMConfig
+    ds, _ = world_1833()
+    cfg = ICMConfig(N=3)
+    rec = PlotRecorder()
+    live, n = counted(lambda: api.run_offline(ds, cfg, "cuda",
+                                              live_plot=rec))
+    plain = api.run_offline(ds, cfg, "cuda")
+    plain2 = api.run_offline(ds, cfg, "cuda")
+    rec2 = PlotRecorder()
+    live2 = api.run_offline(ds, cfg, "cuda", live_plot=rec2)
+    check(n["k1"] == 3 and n["k2"] == 0,
+          f"live-plot run launched K1 {n['k1']}x, K2 {n['k2']}x; want 3, 0")
+    check(len(rec.calls) == len(rec2.calls) == 3,
+          f"{len(rec.calls)}, {len(rec2.calls)} live-plot updates; want 3")
+    for x, lm, odom in rec.calls:
+        check(isinstance(x, np.ndarray) and isinstance(lm, np.ndarray)
+              and x.shape == (1833, 3) and lm.ndim == 2
+              and lm.shape[1] == 2 and odom is ds.odom,
+              f"live-plot update got {type(x)} {getattr(x, 'shape', None)}, "
+              f"{getattr(lm, 'shape', None)}")
+    check(np.array_equal(rec.calls[-1][0], live.x)
+          and np.array_equal(rec.calls[-1][1], live.map_pos),
+          "the last live-plot update is not the result")
+    fields = ("x_init", "x", "map_pos", "map_counts", "changes")
+    for a, b, what in ((live, plain, "with and without the live plot"),
+                       (plain, plain2, "plain run twice"),
+                       (live, live2, "live-plot run twice")):
+        differ = [f for f in fields
+                  if not np.array_equal(getattr(a, f), getattr(b, f))]
+        check(not differ, f"{what}: {differ} differ")
+    sweep = {k: [r.timings["refine_per_iter_s"] for r in runs]
+             for k, runs in (("live", (live, live2)),
+                             ("plain", (plain, plain2)))}
+    emit(phase="live_plot", world="synthetic_world(T=1833, seed=0)",
+         config="ICMConfig(N=3)", updates=len(rec.calls),
+         census_per_sweep=[lm.shape[0] for _, lm, _ in rec.calls],
+         k1_launches=n["k1"], vs_plain="bitwise",
+         order="live, plain, plain, live",
+         refine_per_iter_s_live=sweep["live"],
+         refine_per_iter_s_plain=sweep["plain"],
+         live_over_plain=sum(sweep["live"]) / sum(sweep["plain"]),
+         init_s_live=[r.timings["init_s"] for r in (live, live2)],
+         init_s_plain=[r.timings["init_s"] for r in (plain, plain2)],
+         card=smi)
+    return n
+
+
+def phase_phase_timer(smi):
+    """22 (c): ``PhaseTimer.phase`` around 100 launches of K2 at the
+    uncapped fleet's (4, 1833, 104, 1024), ``block_on`` a dict holding the
+    last output and a MapState on the card, against the CUDA-event time of
+    the same 100 launches: at least 0.9 of it; the phase without
+    ``block_on`` beside it (what the host takes to issue them)."""
+    import torch
+    from icm_slam_tpu_torch.mapping.landmark_map import empty_map
+    from icm_slam_tpu_torch.utils.profiling import PhaseTimer
+    shape, reps = (4, 1833, 104, 1024), 100
+    fn = kernel_call("k2", shape, 1024)
+    fn()
+    torch.cuda.synchronize()
+    timer = PhaseTimer()
+    held = {"map": empty_map(8, device="cuda")}
+    with timer.phase("blocked", block_on=held):
+        for _ in range(reps):
+            held["k2"] = fn()
+    with timer.phase("unblocked"):
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    event_ms = cuda_ms(fn, reps) * reps
+    blocked_ms = timer.totals["blocked"] * 1e3
+    check(blocked_ms >= 0.9 * event_ms,
+          f"PhaseTimer read {blocked_ms} ms for {reps} launches the card "
+          f"took {event_ms} ms over: it did not wait for the device")
+    out = dict(shape=list(shape), launches=reps, phase_ms=blocked_ms,
+               cuda_event_ms=event_ms,
+               unblocked_ms=timer.totals["unblocked"] * 1e3,
+               ratio=blocked_ms / event_ms, report=timer.report())
+    emit(phase="phase_timer", **out, card=smi)
+    return out
+
+
+def trace_sweep_main():
+    """``--trace-sweep`` (22 (b), a process of its own, so that no earlier
+    profiler window shares it): one refine sweep + map filter
+    (``_refine_step``) on the T=1833 world's hoisted data, after one warm
+    sweep from ``run(..., n_iters=0)``'s start, under
+    ``utils.profiling.device_trace`` into build/chip_smoke/trace/; the
+    trace parsed, its kernel events counted; then ``launches_and_syncs``
+    of the same sweep.  Prints one JSON line."""
+    import glob
+    import shutil
+    sys.path.insert(0, HERE)
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.solver import icm
+    from icm_slam_tpu_torch.utils.profiling import device_trace
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds, _ = world_1833()
+    cfg = ICMConfig()
+    start = icm.run(ds, cfg, "cuda", n_iters=0)
+    data = icm.prepare(ds, cfg, "cuda")
+    cfg = icm.resolve_config(cfg, data)
+    data = icm.hoist_compaction(data, cfg)
+    w = weights(cfg, "cuda")
+    cur = map_of(start.map_pos, start.map_counts, cfg.L)
+    x = torch.from_numpy(start.x_init).cuda()
+    cur, x, _ = icm._refine_step(data, cur, x, cfg, w)
+
+    def sweep():
+        return icm._refine_step(data, cur, x, cfg, w)
+
+    sweep()
+    torch.cuda.synchronize()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    with device_trace(TRACE_DIR):
+        sweep()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    (path,) = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    t3 = time.perf_counter()
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    prof = launches_and_syncs(sweep)
+    print(json.dumps(dict(
+        trace_file=os.path.relpath(path, HERE),
+        trace_bytes=os.path.getsize(path), trace_events=len(events),
+        trace_kernels=len(kernels),
+        k1_in_trace=sum(KERNEL_NAME_PART["k1"] in e.get("name", "")
+                        for e in kernels),
+        k2_in_trace=sum(KERNEL_NAME_PART["k2"] in e.get("name", "")
+                        for e in kernels),
+        traced_sweep_s=t1 - t0, export_s=t2 - t1, parse_s=t3 - t2,
+        profiler_kernel_launches=prof["kernel_launches"],
+        profiler_host_syncs=prof["host_syncs"])), flush=True)
+
+
+def phase_utils(smi):
+    """22: the profiling and plotting modules on the card, around the main
+    path: (a) the live plot (in process), (c) ``PhaseTimer``, then three
+    kinds of processes at once: (b) ``device_trace`` of one sweep against
+    the profiler's launch count (``--trace-sweep``), (d) the CLI's
+    ``--plot`` (without matplotlib it must exit non-zero naming it and
+    print no summary; with it both PNGs must be written), (e) examples 06
+    (fleet mode, K1 with a world axis) and 02 (online, K2 each frame) on
+    the card, each exiting 0 and printing its census."""
+    import importlib.util
+    import re
+    import shutil
+    n22 = phase_live_plot(smi)
+    phase_phase_timer(smi)
+
+    os.makedirs(WORK, exist_ok=True)
+    plots = os.path.join(WORK, "plots")
+    shutil.rmtree(plots, ignore_errors=True)
+    examples = os.path.join(HERE, "examples_torch")
+    cmds = {
+        "trace": [os.path.abspath(__file__), "--trace-sweep"],
+        "cli_plot": ["-m", "icm_slam_tpu_torch", "run", "--dataset",
+                     "synthetic", "--frames", "200", "--iters", "1",
+                     "--plot", plots],
+        "example_06": [os.path.join(examples, "06_fleet_mode.py"),
+                       "--device", "cuda"],
+        "example_02": [os.path.join(examples, "02_online_streaming.py"),
+                       "--device", "cuda", "--frames", "200"]}
+    # each process writes into files (no pipe to fill); each one's seconds
+    # from the common start to its exit
+    logs = {k: [os.path.join(WORK, f"phase22_{k}.{s}") for s in ("out",
+                                                                "err")]
+            for k in cmds}
+    t0 = time.perf_counter()
+    procs = {}
+    for k, c in cmds.items():
+        with open(logs[k][0], "w") as out, open(logs[k][1], "w") as err:
+            procs[k] = subprocess.Popen([sys.executable, *c], cwd=HERE,
+                                        stdout=out, stderr=err)
+    done = {}
+    try:
+        while len(done) < len(procs):
+            check(time.perf_counter() - t0 < 300,
+                  f"phase 22's processes {sorted(set(procs) - set(done))} "
+                  f"still running after 300 s")
+            for k, proc in procs.items():
+                if k not in done and proc.poll() is not None:
+                    done[k] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, secs in done.items():
+        with open(logs[k][0]) as out, open(logs[k][1]) as err:
+            done[k] = (procs[k].returncode, out.read(), err.read(), secs)
+
+    def ok(k):
+        rc, out, err, _ = done[k]
+        check(rc == 0, f"{k} exited {rc}:\n{err[-3000:]}")
+        return out
+
+    trace = json.loads(ok("trace").strip().splitlines()[-1])
+    n_prof = trace["profiler_kernel_launches"]
+    check(abs(trace["trace_kernels"] - n_prof) <= 0.01 * n_prof,
+          f"device_trace holds {trace['trace_kernels']} kernels; the "
+          f"profiler counted {n_prof} launches of the same sweep")
+    check(trace["k1_in_trace"] == 1,
+          f"K1 appears {trace['k1_in_trace']}x in the sweep's trace")
+    emit(phase="device_trace", **trace, seconds=done["trace"][3],
+         card=smi)
+
+    rc, out, err, secs = done["cli_plot"]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    summary = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if has_mpl:
+        check(rc == 0, f"cli --plot exited {rc}:\n{err[-3000:]}")
+        sizes = {f: os.path.getsize(os.path.join(plots, f))
+                 if os.path.isfile(os.path.join(plots, f)) else 0
+                 for f in ("slam.png", "convergence.png")}
+        check(all(v > 1000 for v in sizes.values()),
+              f"cli --plot wrote {sizes}")
+        result = dict(branch="matplotlib present: both PNGs written",
+                      png_bytes=sizes)
+    else:
+        check(rc != 0 and "matplotlib" in err and not summary
+              and not os.path.exists(plots),
+              f"without matplotlib cli --plot exited {rc}, printed "
+              f"{summary}, stderr {err[-500:]!r}")
+        result = dict(branch="matplotlib missing: exited before any work",
+                      exit_code=rc, message=err.strip().splitlines()[-1])
+    emit(phase="cli_plot", **result, seconds=secs, card=smi)
+
+    censuses = {}
+    for k, pattern in (("example_06", r"^fleet sharded over 1 rank\(s\): "
+                                      r"same censuses (\[[\d, ]+\])"),
+                       ("example_02", r"^online run: 200 poses, "
+                                      r"(\d+) landmarks$")):
+        m = re.search(pattern, ok(k), re.M)
+        check(m is not None, f"{k} printed no census:\n{done[k][1][-2000:]}")
+        censuses[k] = json.loads(m.group(1))
+    emit(phase="examples", census_06_fleet=censuses["example_06"],
+         census_02_online=censuses["example_02"],
+         seconds={k: done[k][3] for k in ("example_06", "example_02")},
+         card=smi)
+    return n22
+
+
 PARENT_ROOT = os.path.join(HERE, "build", "parent")
 
 
@@ -2753,6 +3047,7 @@ def main():
     launches.update(parallel_fleet=n21b, parallel_time=n21c)
     nacts.update(nacts21c)
     emit(phase="parallel_wall_seconds", seconds=time.perf_counter() - t21)
+    launches["live_plot"] = timed("utils", phase_utils, smi)
     check_shapes_covered(launches)
     emit(phase="launches_by_shape", **{
         run: {f"{kind} {list(shape)}": c
@@ -2780,5 +3075,7 @@ if __name__ == "__main__":
         time_kernels_main(os.path.abspath(sys.argv[2]), {
             "k1": [int(v) for v in sys.argv[3].split(",")],
             "k2": [int(v) for v in sys.argv[4].split(",")]})
+    elif sys.argv[1:] == ["--trace-sweep"]:
+        trace_sweep_main()
     else:
         main()

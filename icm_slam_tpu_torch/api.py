@@ -9,8 +9,7 @@ Port of ``icm_slam_tpu.api``:
 ``run_batched`` — fleet mode, re-exported from ``solver.icm``: W same-shape
                   worlds through the batched engine at once.
 
-Both take reference-format YAML configs (``ICMConfig.from_yaml``).  The
-live plot of the JAX package is not ported (it needs matplotlib).
+Both take reference-format YAML configs (``ICMConfig.from_yaml``).
 """
 from __future__ import annotations
 
@@ -34,30 +33,45 @@ from icm_slam_tpu_torch.utils.metrics import JsonlLogger, ate
 def run_offline(dataset, config: Optional[ICMConfig] = None,
                 device="cuda", checkpoint_dir: Optional[str] = None,
                 resume: bool = False, log_path: Optional[str] = None,
-                verbose: bool = False,
+                verbose: bool = False, live_plot=None,
                 checkpoint_every: int = 5) -> icm.ICMResult:
     """Full offline pipeline on a Dataset (or dataset name/path).
 
-    ``checkpoint_every``: when only ``checkpoint_dir`` is set (no logger),
-    the refinement runs in segments of that many sweeps with a checkpoint
-    at each segment's end; a logger (``log_path`` or ``verbose``) makes
-    the observer fire, and checkpoints land, after every sweep.
-    ``resume`` continues from the newest checkpoint in ``checkpoint_dir``.
+    ``live_plot``: a ``utils.viz.LivePlot`` (or True for a default one;
+    False means none), or anything with its ``update(x, landmarks,
+    odom=None)``: after every sweep it gets the poses and the live
+    landmarks as NumPy arrays, the reference's per-iteration graficar2
+    loop (ICM_ROS.py:304,313-315).  It only reads: the result is the
+    same, bit for bit, without it.
+
+    ``checkpoint_every``: when only ``checkpoint_dir`` is set (no logger,
+    no live plot), the refinement runs in segments of that many sweeps
+    with a checkpoint at each segment's end; a per-sweep observer (a
+    logger, from ``log_path`` or ``verbose``, or a live plot) makes the
+    observer fire, and checkpoints land, after every sweep.  ``resume``
+    continues from the newest checkpoint in ``checkpoint_dir`` (with no
+    live plot, as in the JAX package).
     """
     if isinstance(dataset, str):
         dataset = load(dataset)
+    if live_plot is True:
+        from icm_slam_tpu_torch.utils.viz import LivePlot
+        live_plot = LivePlot()
+    elif live_plot is False:
+        live_plot = None
     config = config or ICMConfig()
     logger = JsonlLogger(log_path) if (log_path or verbose) else None
     try:
         return _run_offline(dataset, config, device, checkpoint_dir, resume,
-                            logger, verbose, checkpoint_every)
+                            logger, verbose, live_plot, checkpoint_every)
     finally:
         if logger:
             logger.close()
 
 
-def _observer(checkpoint_dir, logger):
-    """The segment-end observer: checkpoint and log sweep k's state."""
+def _observer(checkpoint_dir, logger, live_plot=None, odom=None):
+    """The segment-end observer: checkpoint, log and plot sweep k's
+    state."""
     def observe(k, cur_map: MapState, x):
         nact = int(cur_map.nact)
         if checkpoint_dir:
@@ -66,11 +80,14 @@ def _observer(checkpoint_dir, logger):
                       cur_map.counts[:nact].cpu().numpy(), nact)
         if logger:
             logger.log("iteration", k=k, landmarks=nact)
+        if live_plot is not None:
+            live_plot.update(x.cpu().numpy(),
+                             cur_map.pos[:nact].cpu().numpy(), odom=odom)
     return observe
 
 
 def _run_offline(dataset, config, device, checkpoint_dir, resume, logger,
-                 verbose, checkpoint_every) -> icm.ICMResult:
+                 verbose, live_plot, checkpoint_every) -> icm.ICMResult:
     if resume and checkpoint_dir:
         path = ckpt.latest(checkpoint_dir)
         if path:
@@ -82,9 +99,11 @@ def _run_offline(dataset, config, device, checkpoint_dir, resume, logger,
                                checkpoint_dir, logger, checkpoint_every)
 
     # an observer only when it has work to do: without one the refinement
-    # runs as one segment with one witness check at its end
-    needs_cb = bool(checkpoint_dir or logger)
-    stride = 1 if logger else max(int(checkpoint_every), 1)
+    # runs as one segment with one witness check at its end; a per-sweep
+    # observer (logger, live plot) makes every segment one sweep
+    per_sweep = bool(logger or live_plot is not None)
+    needs_cb = bool(checkpoint_dir or per_sweep)
+    stride = 1 if per_sweep else max(int(checkpoint_every), 1)
 
     def on_init(x_init):
         # the iteration-0 trajectory, persisted before any refinement, so
@@ -95,7 +114,8 @@ def _run_offline(dataset, config, device, checkpoint_dir, resume, logger,
                                 x_init=x_init)
 
     result = icm.run(dataset, config, device, verbose=verbose,
-                     callback=_observer(checkpoint_dir, logger)
+                     callback=_observer(checkpoint_dir, logger, live_plot,
+                                        dataset.odom)
                      if needs_cb else None, on_init=on_init,
                      callback_stride=stride)
     if logger:

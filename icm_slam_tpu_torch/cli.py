@@ -13,10 +13,14 @@ needs ``roslibpy``, or a stand-in for it).  ``--device`` picks the device
 (default ``cuda``; a missing GPU is an error, never a silent fallback to
 the CPU; it replaces the JAX CLI's ``online --cpu``).  The flags are those
 of ``python -m icm_slam_tpu``, except the TPU knobs (``--pallas``,
-``--pallas-fused``) and plotting (``--plot``, ``--plot-live``), which the
-port does not have.  ``run --loop-close``
+``--pallas-fused``), which the port does not have.  ``run --loop-close``
 detects loop closures in the refined trajectory and corrects it with the
-pose graph on the same device.
+pose graph on the same device.  ``--plot DIR`` (every command) writes
+``slam.png`` and ``convergence.png`` into DIR; ``run --plot-live``
+re-plots the trajectory and the map after every sweep (``replay`` takes
+the flag and does nothing with it, as in the JAX CLI).  Both need
+matplotlib: without it a command given either flag exits before it
+does any work.
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ def _add_common(ap):
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--plot", default=None, metavar="DIR",
+                    help="save trajectory/convergence PNGs to DIR")
     ap.add_argument("--profile",
                     choices=["fast", "default", "turbo", "ultra", "max"],
                     default=None,
@@ -55,6 +61,9 @@ def _add_common(ap):
     ap.add_argument("--checked-cap", action="store_true",
                     help="verify map_run_cap at runtime instead of the "
                          "provable total_obs/cota bound")
+    ap.add_argument("--plot-live", action="store_true",
+                    help="re-plot trajectory + map after every ICM "
+                         "iteration (reference per-iteration plotting)")
     ap.add_argument("--loop-close", action="store_true",
                     help="run: detect loop closures (scan ICP) and "
                          "pose-graph correct the refined trajectory")
@@ -62,6 +71,16 @@ def _add_common(ap):
                     help="write the landmark map as an occupancy-grid PGM")
     ap.add_argument("--export-tum", default=None, metavar="TXT",
                     help="write the trajectory in TUM format")
+
+
+def _require_matplotlib():
+    """Exit before any work when a plot flag is given and matplotlib is
+    missing (never a run whose plots are skipped or fail at its end)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"--plot / --plot-live need matplotlib, which "
+                         f"cannot be imported here ({e})") from e
 
 
 def _config(args):
@@ -112,6 +131,18 @@ def _save(args, res, ds, cfg):
         np.savez_compressed(args.out, x=res.x, x_init=res.x_init,
                             map_pos=res.map_pos, map_counts=res.map_counts,
                             changes=res.changes)
+    if args.plot:
+        import os
+        from icm_slam_tpu_torch.utils.viz import plot_convergence, plot_slam
+        os.makedirs(args.plot, exist_ok=True)
+        name = ds.name if ds is not None else "online"
+        plot_slam(res.x, res.map_pos,
+                  odom=ds.odom if ds is not None else None,
+                  path=os.path.join(args.plot, "slam.png"),
+                  title=f"{name}: trajectory + {res.map_pos.shape[0]} "
+                        f"landmarks")
+        plot_convergence(res.changes,
+                         path=os.path.join(args.plot, "convergence.png"))
     if not args.quiet:
         from icm_slam_tpu_torch.utils.metrics import ate
         summary = {
@@ -128,7 +159,8 @@ def cmd_run(args):
     from icm_slam_tpu_torch.api import run_offline
     res = run_offline(ds, cfg, args.device,
                       checkpoint_dir=args.checkpoint_dir, resume=args.resume,
-                      log_path=args.log, verbose=not args.quiet)
+                      log_path=args.log, verbose=not args.quiet,
+                      live_plot=True if args.plot_live else None)
     if args.loop_close:
         import torch
         from icm_slam_tpu_torch.models.loop_closure import close_loops
@@ -214,12 +246,15 @@ def main(argv=None):
                       help="torch device (default cuda)")
     p_on.add_argument("--out", default=None, help="write result .npz here")
     p_on.add_argument("--quiet", action="store_true")
+    p_on.add_argument("--plot", default=None, metavar="DIR")
     p_on.add_argument("--export-map", default=None, metavar="PGM")
     p_on.add_argument("--export-tum", default=None, metavar="TXT")
     p_on.set_defaults(fn=cmd_online, map_cap=None, checked_cap=False,
                       jacobi=False)
 
     args = ap.parse_args(argv)
+    if args.plot or getattr(args, "plot_live", False):
+        _require_matplotlib()
     args.fn(args)
 
 

@@ -272,3 +272,8 @@ def weights(config, device=None):
     sqrt_odom = torch.sqrt(torch.tensor(config.cte_odom, dtype=dtype,
                                         device=device))
     return sqrt_r, sqrt_q, sqrt_odom, config.deltat
+
+
+def energy(residuals):
+    """The energy of a residual vector: its sum of squares."""
+    return torch.sum(residuals * residuals)

@@ -382,22 +382,22 @@ def test_cli_run_and_replay(tmp_path, capsys):
         assert z["x"].shape == (80, 3) and np.isfinite(z["x"]).all()
 
 
-def test_cli_refuses_what_the_port_lacks(capsys):
-    """The TPU knobs and plotting are argparse errors; ``--loop-close`` and
-    the BA modes are flags of the port (their parity: test_torch_ba.py,
-    test_torch_loop_closure.py)."""
-    for flag in ("--pallas", "--pallas-fused", "--plot-live"):
+def test_cli_refuses_what_the_port_lacks(capsys, tmp_path):
+    """The TPU knobs are argparse errors; ``--loop-close``, the BA modes
+    and the plot flags are flags of the port (their parity:
+    test_torch_ba.py, test_torch_loop_closure.py,
+    test_torch_utils_viz.py)."""
+    for flag in ("--pallas", "--pallas-fused"):
         with pytest.raises(SystemExit):
             cli.main(["run", "--dataset", "synthetic", flag])
     if not torch.cuda.is_available():
         # past argparse, the default device refuses to fall back
         for extra in (["--loop-close"], ["--mode", "ba"],
-                      ["--mode", "windowed_ba"]):
+                      ["--mode", "windowed_ba"], ["--plot-live"],
+                      ["--plot", str(tmp_path / "d")]):
             with pytest.raises(RuntimeError):
                 cli.main(["run", "--dataset", "synthetic", "--frames", "20",
                           *extra])
-    with pytest.raises(SystemExit):
-        cli.main(["run", "--plot", "d"])
-    if not torch.cuda.is_available():
+        assert not (tmp_path / "d").exists()
         with pytest.raises(RuntimeError):
             cli.main(["run", "--dataset", "synthetic", "--frames", "20"])

@@ -127,6 +127,8 @@ def test_port_imports_no_jax():
         "import icm_slam_tpu_torch.utils.checkpoint\n"
         "import icm_slam_tpu_torch.utils.export\n"
         "import icm_slam_tpu_torch.utils.metrics\n"
+        "import icm_slam_tpu_torch.utils.profiling\n"
+        "import icm_slam_tpu_torch.utils.viz\n"
         "import icm_slam_tpu_torch.models.bundle_adjustment\n"
         "import icm_slam_tpu_torch.models.windowed_ba\n"
         "import icm_slam_tpu_torch.models.loop_closure\n"
@@ -141,6 +143,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'icm_slam_tpu']\n"
         "assert not bad, bad\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "assert 'icm_slam_tpu_torch.models.loop_closure' in sys.modules\n"
         "assert 'icm_slam_tpu_torch.runtime.ingest' in sys.modules\n"
         "assert {'icm_slam_tpu_torch.parallel.' + m for m in"
