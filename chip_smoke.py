@@ -33,7 +33,9 @@ nonzero and the final line is not printed:
    census must be exact, the ATE against the world's truth within 10% of
    JAX's; the pose difference to JAX is printed;
 5. the uncapped branch: the same world with map_run_cap=0 and N=3;
-   launch counts: K1 exactly 30 in run 4 and K2 exactly 3 in run 5;
+   launch counts: K1 exactly 30 in run 4 and K2 exactly 3 in run 5 (on
+   the card every batched sweep after a run's first is a CUDA-graph
+   replay, ``solver.cuda_graph``, which counts the launches it replays);
 6. the small world of tests/test_torch_slice.py on the card against its
    golden: census exact, poses and map within 1e-3;
 7. warm timings of the main path, and the kernel launches
@@ -77,7 +79,9 @@ nonzero and the final line is not printed:
    another commit's package lies under build/parent/ (never committed;
    ``mkdir -p build/parent && git archive HEAD~1 icm_slam_tpu_torch | tar
    -x -C build/parent``), the same table of both, in turns old, new, new,
-   old, each turn a process of its own.
+   old, each turn a process of its own.  K3's rows (W, K) are in the same
+   table, at n = K and at the fewest live rows the runs left, each held
+   bitwise to the plain walk on its inputs.
 
 13. custom energy hooks on the batched engines: the T=1833 world with
    ``ICMConfig(N=3, init_mode="batched")`` and the hooks of
@@ -128,9 +132,10 @@ nonzero and the final line is not printed:
    adds in a fixed order, ``landmark_map.add_rows``); (d)
    kernel launches, host syncs and busy time of one fleet sweep and of
    the init's first 8 chunks at W=8 against W=1's (phase 7's profiles:
-   ``run()`` is the fleet of one): launches within 5%, the same syncs, 1
-   a sweep; (e) an uncapped fleet of four (map_run_cap=0, N=3):
-   K2 exactly N times, each world's census and poses those of ``run()``.
+   ``run()`` is the fleet of one): launches within 5%, the same syncs,
+   none in a sweep (one before K3: ``filter_map``'s walk on the host);
+   (e) an uncapped fleet of four (map_run_cap=0, N=3): K2 exactly N
+   times, each world's census and poses those of ``run()``.
    The fleet shapes have rows in the kernel table (phase 12), their bound
    W times a world's.
 19. ``python -m icm_slam_tpu_torch online`` as a subprocess on the card
@@ -148,7 +153,9 @@ nonzero and the final line is not printed:
    (4, 400, 104, 128 of 2048) and (3, 120, 16, 256), K1 at (4, 1833, 104,
    128) and (4, 400, 104, 128 of 1024), another live count in every world:
    against their plain versions (labels exact, distances within 1e-5) and
-   each world bitwise its launch alone; (b) the small fleets of
+   each world bitwise its launch alone, K2 at the per-frame shapes with
+   the d^2 and the sqrt key (``landmark_map.update``'s);
+   (b) the small fleets of
    ``synthetic_world(T=120, n_landmarks=10, seed=s)``, s = 7, 10, 11, in
    six configurations (hooks on the batched init, ``ba``, ``windowed_ba``,
    non-quirk labels, ``init_mode="sequential"``, ``sweep_mode=
@@ -203,18 +210,37 @@ nonzero and the final line is not printed:
    ``utils.profiling.device_trace`` of one refine sweep + map filter
    (``--trace-sweep``, a process of its own) into build/chip_smoke/trace/:
    its kernel events within 1% of the profiler's launch count for the same
-   sweep, K1 once, the file's size and its export's seconds; (d) ``python -m
+   sweep, K1 and K3 once, no host sync, the file's size and its export's
+   seconds; (d) ``python -m
    icm_slam_tpu_torch run --dataset synthetic --frames 200 --iters 1 --plot
    DIR``: without matplotlib it exits non-zero naming it and prints no
    summary, with it both PNGs are over 1,000 bytes (the branch taken is
    printed); (e) examples_torch/06_fleet_mode.py and 02_online_streaming.py
    (200 frames) with ``--device cuda``: exit 0 and a census.
 
+23. K3 and the sweeps replayed from one CUDA graph: (a) K3
+   (``ops.relabel.relabel_walk``, ``csrc/relabel_walk.cu``) against its
+   plain walk at every (W, K) of KERNEL_SHAPES (all that the counted runs
+   give it: W in {1, 2, 3, 4, 8}, K in {128, 256, 1024}) and at (1, 2048),
+   world 0 walking n in {0, 1, 37, K} rows (the other worlds
+   other counts), random and chained close rows: labels bitwise; (b) one
+   batched sweep + map filter + ``map_change`` under PyTorch's sync
+   debug mode "error" on the T=1833 world capped and uncapped and on the
+   fleet of eight (phase 18's worlds): no host sync; (c) N=30 sweeps of
+   the main world and of that fleet through ``icm.refine_sweeps`` (one
+   eager sweep, the capture, 29 replays, the replays under "error")
+   against the same sweeps one by one, in turns eager, graph, graph,
+   eager: map, poses, witnesses and changes bitwise between every turn,
+   29 replays a graph run, K1 and K3 exactly 30 times and K2 never in
+   each; each turn's seconds a sweep, each capture's seconds and a graph
+   turn's seconds a replay; then one replay's device time and launches
+   under the profiler (its idle share against the replay's seconds).
+
 ``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
 package under ROOT (what each of those turns runs); ``--trace-sweep``
 runs phase 22 (b).
 
-Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20-22) counts the
+Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20-23) counts the
 kernel launches with the counters set to 0 just before it and read just
 after; the kernels' JSON line sums them.  A ``wall_seconds`` line gives
 each phase's seconds (standard error has each as it ends).  Then the
@@ -371,7 +397,10 @@ def dims(shape):
 
 def shape_bound_us(kind, shape, nact):
     """The bound of a call at ``shape``: a fleet's is W times one
-    world's (every world reads and writes its own)."""
+    world's (every world reads and writes its own); K3's is its inputs'
+    (``k3_bound_us``)."""
+    if kind == "k3":
+        return k3_bound_us(*k3_inputs(shape, nact))
     W, T, B, K = dims(shape)
     return kernel_bound_us(kind, T, B, K, nact, W)
 
@@ -390,7 +419,10 @@ def shape_bound_us(kind, shape, nact):
 # non-quirk and the init_mode="sequential" ones on 104 compacted beams at
 # L=2048 and 1024), K2 on the non-quirk fleet's sweeps (the first 128
 # columns of 2048), K1 on the causal-init fleet's capped sweeps, and the
-# small fleets' K2 (per frame on 181 and 16 beams, per sweep uncapped)
+# small fleets' K2 (per frame on 181 and 16 beams, per sweep uncapped);
+# then K3, (W, K): the map filter of every sweep capped (K = map_run_cap)
+# and uncapped (K = L) and the init's merge (K = L), for one world and the
+# fleets of 2, 3, 4 and 8 (the small fleets' L = 256)
 KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k2", (1833, 48, 128), 7), ("k2", (1, 181, 1024), 3),
                  ("k2", (1, 48, 2048), 8), ("k1", (240, 16, 128), 14),
@@ -409,7 +441,12 @@ KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k2", (3, 1, 181, 256), 100),
                  ("k2", (3, 1, 16, 256), 104),
                  ("k2", (3, 120, 16, 256), 108),
-                 ("k1", (1840, 48, 128), 112))
+                 ("k1", (1840, 48, 128), 112),
+                 ("k3", (1, 128), 120), ("k3", (1, 1024), 121),
+                 ("k3", (2, 128), 122), ("k3", (2, 1024), 123),
+                 ("k3", (3, 128), 124), ("k3", (3, 256), 125),
+                 ("k3", (4, 128), 126), ("k3", (4, 1024), 127),
+                 ("k3", (8, 128), 128), ("k3", (8, 1024), 129))
 # tables whose first K columns a kernel searches, as the paths pass them:
 # the non-quirk sweep's K2, and a fleet's K1 (the first map_run_cap
 # columns of each world's L)
@@ -420,7 +457,8 @@ TABLE_WIDTH = {("k2", (1833, 48, 128)): 2048,
                ("k1", (3, 240, 48, 128)): 256,
                ("k2", (4, 400, 104, 128)): 2048,
                ("k1", (4, 400, 104, 128)): 1024}
-KERNEL_NAME_PART = {"k1": "assoc_sums", "k2": "nearest_landmark"}
+KERNEL_NAME_PART = {"k1": "assoc_sums", "k2": "nearest_landmark",
+                    "k3": "relabel_walk"}
 
 
 def shape_inputs(kind, shape):
@@ -443,39 +481,60 @@ def shape_inputs(kind, shape):
 def kernel_call(kind, shape, nact, plain=False):
     """A closure that calls the kernel's wrapper (``plain``: its plain
     version) at ``shape`` with ``nact`` live columns, on inputs that stay
-    where they are (warm in L2, as the callers find them)."""
+    where they are (warm in L2, as the callers find them).  K2 at a
+    per-frame shape (one frame, T = 1) takes the sqrt key, as
+    ``landmark_map.update``, its one caller there, does.  K3 walks
+    ``nact`` rows in world 0 (``k3_inputs``)."""
     import torch
     from icm_slam_tpu_torch.ops import assoc as k2
     from icm_slam_tpu_torch.ops import assoc_sums as k1
+    from icm_slam_tpu_torch.ops import relabel as k3
+    if kind == "k3":
+        ins = k3_inputs(shape, nact)
+        walk = k3.relabel_walk_plain if plain else k3.relabel_walk
+        return lambda: walk(*ins)
     pts, mp, mask = shape_inputs(kind, shape)
     n = count_tensor(nact, None if len(shape) == 3 else dims(shape)[0])
     if kind == "k1":
         if plain:
             return lambda: k1.associate_and_sums_plain(pts, mp, mask, n, 1.0)
         return lambda: k1.associate_and_sums(pts, mp, mask, n, 1.0)
+    sqrt_key = dims(shape)[1] == 1
     if plain:
-        return lambda: k2.nearest_landmark_plain(pts, mp, n)
-    return lambda: k2.nearest_landmark(pts, mp, n)
+        return lambda: k2.nearest_landmark_plain(pts, mp, n,
+                                                 sqrt_key=sqrt_key)
+    return lambda: k2.nearest_landmark(pts, mp, n, sqrt_key)
 
 
 def kernel_variant(kind, shape):
     """The launch variant the wrapper takes at this shape, as a string."""
     from icm_slam_tpu_torch.ops import assoc as k2
     from icm_slam_tpu_torch.ops import assoc_sums as k1
+    from icm_slam_tpu_torch.ops import relabel as k3
+    if kind == "k3":
+        return " ".join(f"{k}={v}" for k, v in
+                        k3.launch_plan(shape[1])._asdict().items())
     mod = k2 if kind == "k2" else k1
     if not hasattr(mod, "launch_plan"):
         return "one launch shape"
     W, T, B, K = dims(shape)
-    plan = mod.launch_plan(T * B, K) if kind == "k2" \
+    plan = mod.launch_plan(T * B, K, T == 1) if kind == "k2" \
         else mod.launch_plan(T, B, K)
     worlds = f"{W} worlds, each " if W > 1 else ""
-    return worlds + " ".join(f"{k}={v}" for k, v in plan._asdict().items())
+    key = ", sqrt key" if kind == "k2" and T == 1 else ""
+    return worlds + " ".join(f"{k}={v}" for k, v in
+                             plan._asdict().items()) + key
 
 
 def kernel_row(kind, shape, nact, profiled=True):
-    """One row of the kernel table, every time measured here."""
+    """One row of the kernel table, every time measured here; K3's labels
+    are held bitwise to the plain walk's on the row's inputs."""
+    import torch
     fn = kernel_call(kind, shape, nact)
-    small = dims(shape)[1] == 1
+    if kind == "k3":
+        check(torch.equal(fn(), kernel_call(kind, shape, nact, True)()),
+              f"K3 labels differ from the plain walk at {shape} n={nact}")
+    small = kind == "k3" or dims(shape)[1] == 1
     own = graph_us(fn, reps=400 if small else 100)
     issue = cuda_ms(fn, reps=400 if small else 100) * 1e3
     bound, by = shape_bound_us(kind, shape, nact)
@@ -502,11 +561,12 @@ def kernel_table(nacts_as_run, profiled=True, worlds=True):
     """Rows for every shape at nact = the table's width and at each live
     count the runs left (``nacts_as_run``: kind -> counts, or (kind,
     shape) -> counts for a shape of its own; a fleet's row gives every
-    world the same count).  ``worlds=False`` leaves out the fleets'
-    shapes (a package from before fleet mode has none)."""
+    world the same count; a kind without counts has no rows).
+    ``worlds=False`` leaves out the fleets' shapes (a package from before
+    fleet mode has none)."""
     rows = []
     for kind, shape, _ in KERNEL_SHAPES:
-        if len(shape) == 4 and not worlds:
+        if kind not in nacts_as_run or (len(shape) == 4 and not worlds):
             continue
         counts = nacts_as_run.get((kind, shape), nacts_as_run[kind])
         for nact in [shape[-1]] + sorted(set(counts), reverse=True):
@@ -643,17 +703,20 @@ def phase_k1(T=1833, B=48, K=128, dist_thr=1.0):
     return dict(max_abs_err=err, plain_ms=plain_ms)
 
 
-def hold_k2(pts, mp, n, plan, what):
+def hold_k2(pts, mp, n, plan, what, sqrt_key=False):
     """K2 with ``plan`` (None: the wrapper's own choice) against its plain
-    version: labels exact, distances within 1e-5.  Returns the error."""
+    version, with the d^2 or the sqrt key: labels exact, distances within
+    1e-5.  Returns the error."""
     import torch
     from icm_slam_tpu_torch.ops import assoc as k2
     nact = count_tensor(n)
+    what = f"{what}{' sqrt key' if sqrt_key else ''}"
     if plan is None:
-        lab, dist = k2.nearest_landmark(pts, mp, nact)
+        lab, dist = k2.nearest_landmark(pts, mp, nact, sqrt_key)
     else:
-        lab, dist = k2.launch(pts, mp, nact, plan)
-    lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
+        lab, dist = k2.launch(pts, mp, nact, plan, sqrt_key)
+    lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact,
+                                              sqrt_key=sqrt_key)
     torch.cuda.synchronize()
     check(torch.equal(lab, lab_p), f"K2 labels differ, {what} nact={n}")
     fin = torch.isfinite(dist_p)
@@ -674,6 +737,37 @@ def k2_variants(n_pts, L, columns=None):
             k2.plan_for(n_pts, L, lanes=1, threads=64, **kw),
             k2.plan_for(n_pts, L, lanes=1, threads=128, **kw),
             k2.plan_for(n_pts, L, lanes=1, threads=256, **kw)]
+
+
+def k2_plans(n_pts, L, sqrt_key, columns=None):
+    """The wrapper's own choice (None) and every variant that takes the
+    key: the sqrt key has the 32-lane kernel only."""
+    return [p for p in [None] + k2_variants(n_pts, L, columns)
+            if not sqrt_key or p is None or p.lanes == 32]
+
+
+def sqrt_tie_inputs():
+    """Two live columns around a point at the origin whose float32 d^2
+    differ by an ulp (the first larger) while their sqrt rounds equal,
+    then 38 columns farther off (the points: the origin, a ulp off it):
+    the d^2 key takes column 1, the sqrt key column 0, as JAX's
+    ``associate`` does."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    while True:
+        b = rng.uniform(0.5, 0.9, 2).astype(np.float32)
+        r, a = np.float32(np.hypot(*b)), rng.uniform(0, 2 * np.pi)
+        ref = np.stack([np.array([r * np.cos(a), r * np.sin(a)],
+                                 np.float32), b])
+        d2 = torch.from_numpy(ref).pow(2).sum(-1)
+        if d2[0] > d2[1] and torch.sqrt(d2[0]) == torch.sqrt(d2[1]):
+            break
+    far = rng.uniform(3, 9, (38, 2)).astype(np.float32)
+    pts = np.zeros((1, 2, 2), np.float32)
+    pts[0, 1, 0] = 1e-7
+    return (torch.from_numpy(pts).cuda(),
+            torch.from_numpy(np.concatenate([ref, far])).cuda())
 
 
 def tie_inputs():
@@ -707,36 +801,55 @@ def tie_inputs():
 
 def hold_k2_ties(what):
     """Every variant, resident and in chunks of 128, 64 and 32 columns
-    (the grouped kernel scans a chunk under 128 column by column), on the
-    tie tables: labels and distances equal to the plain version's."""
+    (the grouped kernel scans a chunk under 128 column by column), with
+    the d^2 and the sqrt key (its variants), on the tie tables: labels and
+    distances equal to the plain version's; on the sqrt tie of unequal d^2
+    the d^2 key takes column 1 and the sqrt key column 0."""
     import torch
     from icm_slam_tpu_torch.ops import assoc as k2
-    for tie_pts, tie_map in tie_inputs():
+    sq_pts, sq_map = sqrt_tie_inputs()
+    for tie_pts, tie_map in tie_inputs() + [(sq_pts, sq_map)]:
         L, n_pts = tie_map.shape[0], tie_pts.shape[1]
-        for columns in (None, 128, 64, 32):
-            for plan in [None] + k2_variants(n_pts, L, columns):
-                for n in (1, 39, 40, 41, 80, 120, 173, L):
-                    nact = count_tensor(n)
-                    lab, dist = (k2.nearest_landmark(tie_pts, tie_map, nact)
-                                 if plan is None else
-                                 k2.launch(tie_pts, tie_map, nact, plan))
-                    lab_p, dist_p = k2.nearest_landmark_plain(
-                        tie_pts, tie_map, nact)
-                    check(torch.equal(lab, lab_p)
-                          and torch.equal(dist, dist_p),
-                          f"K2 breaks a d^2 tie otherwise than its plain "
-                          f"version: {what} plan={plan} nact={n}")
+        for sqrt_key in (False, True):
+            for columns in (None, 128, 64, 32):
+                for plan in k2_plans(n_pts, L, sqrt_key, columns):
+                    for n in (1, 2, 39, 40, 41, 80, 120, 173, L):
+                        if n > L:
+                            continue
+                        nact = count_tensor(n)
+                        lab, dist = (
+                            k2.nearest_landmark(tie_pts, tie_map, nact,
+                                                sqrt_key)
+                            if plan is None else
+                            k2.launch(tie_pts, tie_map, nact, plan,
+                                      sqrt_key))
+                        lab_p, dist_p = k2.nearest_landmark_plain(
+                            tie_pts, tie_map, nact, sqrt_key=sqrt_key)
+                        check(torch.equal(lab, lab_p)
+                              and torch.equal(dist, dist_p),
+                              f"K2 breaks a tie otherwise than its plain "
+                              f"version: {what} plan={plan} nact={n} "
+                              f"sqrt_key={sqrt_key}")
+                        if tie_map is sq_map and n >= 2:
+                            check(lab[0, 0].item() == (0 if sqrt_key
+                                                       else 1),
+                                  f"K2 sqrt_key={sqrt_key} took column "
+                                  f"{lab[0, 0].item()} on the sqrt tie")
 
 
 def hold_k2_shape(shape, nacts):
     """K2 at one of KERNEL_SHAPES, through the wrapper and with every
-    variant whichever the wrapper picks; returns the largest error."""
+    variant whichever the wrapper picks; at a per-frame shape (T = 1,
+    ``landmark_map.update``'s) with the sqrt key too.  Returns the largest
+    error."""
     T, B, L = shape
     pts, mp, _ = shape_inputs("k2", shape)
     err = 0.0
-    for plan in [None] + k2_variants(T * B, L):
-        for n in nacts:
-            err = max(err, hold_k2(pts, mp, n, plan, f"{shape} {plan}"))
+    for sqrt_key in (False, True) if T == 1 else (False,):
+        for plan in k2_plans(T * B, L, sqrt_key):
+            for n in nacts:
+                err = max(err, hold_k2(pts, mp, n, plan, f"{shape} {plan}",
+                                       sqrt_key))
     return err
 
 
@@ -985,18 +1098,19 @@ def phase_profile(smi):
 
 
 def counted(fn):
-    """``fn()`` with both kernels' launch counters set to 0 just before it;
-    returns (result, {"k1": n, "k2": n, "shapes": {(kernel, shape): n}})
-    read just after."""
-    from icm_slam_tpu_torch.ops import assoc as k2
-    from icm_slam_tpu_torch.ops import assoc_sums as k1
-    for mod in (k1, k2):
-        mod.LAUNCHES = 0
-        mod.LAUNCH_SHAPES.clear()
+    """``fn()`` with the kernels' launch counters set to 0 just before it;
+    returns (result, {"k1": n, "k2": n, "k3": n, "shapes": {(kernel,
+    shape): n}}) read just after.  A sweep replayed from a CUDA graph
+    counts the launches its capture made (``solver.cuda_graph``)."""
+    from icm_slam_tpu_torch.ops import _build
+    _build.LAUNCHES.clear()
     out = fn()
-    shapes = {(kind, shape): n for kind, mod in (("k1", k1), ("k2", k2))
-              for shape, n in mod.LAUNCH_SHAPES.items()}
-    return out, {"k1": k1.LAUNCHES, "k2": k2.LAUNCHES, "shapes": shapes}
+    kinds = {name: kind for kind, name in KERNEL_NAME_PART.items()}
+    shapes = {(kinds[name], shape): n
+              for (name, shape), n in _build.LAUNCHES.items()}
+    return out, {**{kind: _build.launches(name)
+                    for kind, name in KERNEL_NAME_PART.items()},
+                 "shapes": shapes}
 
 
 def big_world(golden, prefix):
@@ -1120,7 +1234,8 @@ def phase_nonquirk_jacobi(ge, smi):
 
 
 def phase_k2_per_frame(B=181, L=1024):
-    """K2 at the shapes every update() gives it, and on d^2 ties."""
+    """K2 at the shapes every update() gives it (with either key; update
+    takes the sqrt key), and on the tie tables."""
     from icm_slam_tpu_torch.ops import assoc as k2
     pts, mp, _ = shape_inputs("k2", (1, B, L))
     err = 0.0
@@ -1163,10 +1278,10 @@ def phase_entry_points(seq_res, smi):
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     ds, _ = world_1833()
-    out, totals = {}, {"k1": 0, "k2": 0, "shapes": {}}
+    out, totals = {}, {"k1": 0, "k2": 0, "k3": 0, "shapes": {}}
 
     def tally(n):
-        for k in ("k1", "k2"):
+        for k in ("k1", "k2", "k3"):
             totals[k] += n[k]
         for key, count in n["shapes"].items():
             totals["shapes"][key] = totals["shapes"].get(key, 0) + count
@@ -1606,23 +1721,27 @@ def hold_k1_worlds(shape, nacts, dist_thr=1.0):
     return err
 
 
-def hold_k2_worlds(shape, nacts):
-    """K2 with a world axis at ``shape``, through the wrapper and with
-    every variant, another live count in each world: against its plain
-    version (labels exact, distances within 1e-5) and, world by world,
-    bitwise against the same plan's launch on that world alone."""
+def hold_k2_worlds(shape, nacts, sqrt_key=False):
+    """K2 with a world axis at ``shape``, with the d^2 or the sqrt key,
+    through the wrapper and with every variant that takes the key,
+    another live count in each world: against its plain version (labels
+    exact, distances within 1e-5) and, world by world, bitwise against the
+    same plan's launch on that world alone."""
     import torch
     from icm_slam_tpu_torch.ops import assoc as k2
     pts, mp, _ = shape_inputs("k2", shape)
     W, T, B, L = dims(shape)
     nact = count_tensor(nacts, W)
-    lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
+    lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact,
+                                              sqrt_key=sqrt_key)
     fin = torch.isfinite(dist_p)
     err = 0.0
-    for plan in [None] + k2_variants(T * B, L):
-        what = f"K2 {shape} nact={list(nacts)} plan={plan}"
-        lab, dist = (k2.nearest_landmark(pts, mp, nact) if plan is None
-                     else k2.launch(pts, mp, nact, plan))
+    for plan in k2_plans(T * B, L, sqrt_key):
+        what = (f"K2 {shape} nact={list(nacts)} plan={plan} "
+                f"sqrt_key={sqrt_key}")
+        lab, dist = (k2.nearest_landmark(pts, mp, nact, sqrt_key)
+                     if plan is None
+                     else k2.launch(pts, mp, nact, plan, sqrt_key))
         torch.cuda.synchronize()
         check(torch.equal(lab, lab_p), f"{what}: labels differ")
         check(torch.equal(fin, torch.isfinite(dist)),
@@ -1632,9 +1751,11 @@ def hold_k2_worlds(shape, nacts):
         check(e <= 1e-5, f"{what}: distances differ by {e}")
         err = max(err, e)
         for w in range(W):
-            one = (k2.nearest_landmark(pts[w], mp[w].contiguous(), nact[w])
+            one = (k2.nearest_landmark(pts[w], mp[w].contiguous(), nact[w],
+                                       sqrt_key)
                    if plan is None else
-                   k2.launch(pts[w], mp[w].contiguous(), nact[w], plan))
+                   k2.launch(pts[w], mp[w].contiguous(), nact[w], plan,
+                             sqrt_key))
             check(torch.equal(lab[w], one[0]) and torch.equal(dist[w], one[1]),
                   f"{what}: world {w} differs from its launch alone")
     return err
@@ -1678,7 +1799,7 @@ def fleet_of(golden, prefix, worlds_kw, cfg):
 
 def add_counts(total, n):
     """Add one run's counts (``counted``) into ``total``."""
-    for k in ("k1", "k2"):
+    for k in ("k1", "k2", "k3"):
         total[k] += n[k]
     for key, count in n["shapes"].items():
         total["shapes"][key] = total["shapes"].get(key, 0) + count
@@ -1690,7 +1811,7 @@ def phase_fleet_small(gf):
     launches and, per kernel shape, the live counts they left."""
     import numpy as np
     from icm_slam_tpu_torch.config import ICMConfig
-    out, launches = {}, {"k1": 0, "k2": 0, "shapes": {}}
+    out, launches = {}, {"k1": 0, "k2": 0, "k3": 0, "shapes": {}}
     # the worlds of tests/test_torch_fleet.py: census exact, 1e-3
     worlds, res, n = fleet_of(
         gf, "slice3", [dict(T=240, n_landmarks=12, seed=s)
@@ -1885,9 +2006,9 @@ def phase_fleet_profile(curve, one_world, smi):
         check(one[part]["host_syncs"] == many[part]["host_syncs"],
               f"fleet {part}: host syncs {one[part]['host_syncs']} at W=1 "
               f"against {many[part]['host_syncs']}")
-    check(one["sweep"]["host_syncs"] == 1 == many["sweep"]["host_syncs"],
+    check(one["sweep"]["host_syncs"] == 0 == many["sweep"]["host_syncs"],
           f"fleet sweep: host syncs {one['sweep']['sync_sites']} at W=1, "
-          f"{many['sweep']['sync_sites']} at W={max(FLEET_WS)}; want 1")
+          f"{many['sweep']['sync_sites']} at W={max(FLEET_WS)}; want 0")
     return prof
 
 
@@ -2093,12 +2214,17 @@ def phase_modes_kernels():
     """20 (a): K2 at the per-frame shapes of the causal fleets and at the
     non-quirk fleet's sweep, K1 at the hooks / BA fleets' and the
     causal-init fleet's sweeps, with a world axis, against their plain
-    versions and world by world against the launch alone."""
-    err2 = max(hold_k2_worlds(shape, (0, 1, 517, shape[-1])[-shape[0]:])
+    versions and world by world against the launch alone; K2 at a
+    per-frame shape (T = 1: ``landmark_map.update``, which takes the sqrt
+    key) with both keys."""
+    err2 = max(hold_k2_worlds(shape, (0, 1, 517, shape[-1])[-shape[0]:],
+                              sqrt_key)
                for shape in ((4, 1, 181, 1024), (4, 1, 104, 2048),
                              (4, 1, 104, 1024), (4, 400, 104, 128),
                              (3, 1, 181, 256), (3, 1, 16, 256),
-                             (3, 120, 16, 256)))
+                             (3, 120, 16, 256))
+               for sqrt_key in ((False, True) if shape[1] == 1
+                                else (False,)))
     err1 = max(hold_k1_worlds(shape, (0, 7, 100, 128))
                for shape in ((4, 1833, 104, 128), (4, 400, 104, 128)))
     emit(phase="fleet_modes_kernels_vs_plain",
@@ -2106,7 +2232,7 @@ def phase_modes_kernels():
                     [4, 400, 104, 128], [3, 1, 181, 256], [3, 1, 16, 256],
                     [3, 120, 16, 256]],
          k1_shapes=[[4, 1833, 104, 128], [4, 400, 104, 128]],
-         labels="exact", k2_distances="within 1e-5 of plain",
+         k2_keys="d^2; both d^2 and sqrt at T = 1", labels="exact", k2_distances="within 1e-5 of plain",
          k1_sums="within 1e-4, bitwise run to run",
          each_world_vs_alone="bitwise", k2_dist_max_abs_err=err2,
          k1_sums_max_abs_err=err1)
@@ -2677,6 +2803,8 @@ def trace_sweep_main():
                         for e in kernels),
         k2_in_trace=sum(KERNEL_NAME_PART["k2"] in e.get("name", "")
                         for e in kernels),
+        k3_in_trace=sum(KERNEL_NAME_PART["k3"] in e.get("name", "")
+                        for e in kernels),
         traced_sweep_s=t1 - t0, export_s=t2 - t1, parse_s=t3 - t2,
         profiler_kernel_launches=prof["kernel_launches"],
         profiler_host_syncs=prof["host_syncs"])), flush=True)
@@ -2750,8 +2878,11 @@ def phase_utils(smi):
     check(abs(trace["trace_kernels"] - n_prof) <= 0.01 * n_prof,
           f"device_trace holds {trace['trace_kernels']} kernels; the "
           f"profiler counted {n_prof} launches of the same sweep")
-    check(trace["k1_in_trace"] == 1,
-          f"K1 appears {trace['k1_in_trace']}x in the sweep's trace")
+    check(trace["k1_in_trace"] == 1 and trace["k3_in_trace"] == 1,
+          f"K1 appears {trace['k1_in_trace']}x and K3 "
+          f"{trace['k3_in_trace']}x in the sweep's trace; want 1 each")
+    check(trace["profiler_host_syncs"] == 0,
+          f"the traced sweep synchronized {trace['profiler_host_syncs']}x")
     emit(phase="device_trace", **trace, seconds=done["trace"][3],
          card=smi)
 
@@ -2789,6 +2920,261 @@ def phase_utils(smi):
          seconds={k: done[k][3] for k in ("example_06", "example_02")},
          card=smi)
     return n22
+
+
+# ---------------------------------------------------------------------------
+# phase 23: K3 and the refine sweeps replayed from one CUDA graph
+# ---------------------------------------------------------------------------
+
+# the (W, K) shapes K3 is held against its plain version at: every K3
+# shape of KERNEL_SHAPES (all that the counted runs give it), and the
+# non-quirk table's width (L = 2048), which an uncapped filter there
+# would walk
+K3_HELD = tuple(shape for kind, shape, _ in KERNEL_SHAPES
+                if kind == "k3") + ((1, 2048),)
+
+
+def walk_inputs(W, K, ns, seed, chained):
+    """K3's inputs on the card: ``chained``, every row close and pointing at
+    its successor (the longest walk: one group, K - 1 steps that relabel),
+    else neighbours near their row or anywhere, an eighth of the rows
+    close; world w walks its first ns[w] rows."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if chained:
+        nn = np.minimum(np.arange(K) + 1, K - 1)[None].repeat(W, 0)
+        close = np.ones((W, K), bool)
+    else:
+        nn = np.clip(np.arange(K)[None] + rng.integers(-3, 4, (W, K)), 0,
+                     K - 1)
+        nn = np.where(rng.uniform(size=(W, K)) < 0.2,
+                      rng.integers(0, K, (W, K)), nn)
+        close = rng.uniform(size=(W, K)) < 0.125
+    dev = torch.device("cuda")
+    return (torch.from_numpy(nn.astype(np.int32)).to(dev),
+            torch.from_numpy(close).to(dev),
+            torch.tensor(ns, dtype=torch.int32, device=dev))
+
+
+def world_counts(n, W, K):
+    """World 0 walks ``n`` rows, the others other counts in [0, K]."""
+    return [n] + [(n * (w + 1) + 37 * w) % (K + 1) for w in range(1, W)]
+
+
+def k3_inputs(shape, n):
+    """The inputs of K3's row at ``shape`` = (W, K) of KERNEL_SHAPES:
+    random close rows (an eighth), world 0 walking ``n`` rows."""
+    W, K = shape
+    seed = {s[:2]: s[2] for s in KERNEL_SHAPES}[("k3", shape)]
+    return walk_inputs(W, K, world_counts(min(n, K), W, K), seed=seed,
+                       chained=False)
+
+
+def phase_k3():
+    """23 (a): K3 against its plain version at K3_HELD, n in {0, 1, 37, K}
+    for world 0 (the other worlds other counts), random and chained close
+    rows: labels bitwise.  Returns the largest label difference (0)."""
+    import torch
+    from icm_slam_tpu_torch.ops import relabel as k3
+    held = []
+    for W, K in K3_HELD:
+        for n in (0, 1, 37, K):
+            for chained in (False, True):
+                ins = walk_inputs(W, K, world_counts(min(n, K), W, K),
+                                  seed=W * K + n, chained=chained)
+                lab = k3.relabel_walk(*ins)
+                lab_p = k3.relabel_walk_plain(*ins)
+                torch.cuda.synchronize()
+                check(torch.equal(lab, lab_p),
+                      f"K3 labels differ from the plain walk at ({W}, {K}) "
+                      f"n={n} chained={chained}")
+        held.append([W, K])
+    ins = walk_inputs(1, 128, [128], seed=1, chained=False)
+    ms, plain_ms = time_pair(lambda: k3.relabel_walk(*ins),
+                             lambda: k3.relabel_walk_plain(*ins), reps=20)
+    emit(phase="k3_vs_plain", shapes=held, n=[0, 1, 37, "K"],
+         close=["random (1/8)", "chained (all)"], labels="bitwise",
+         issue_interval_ms=ms, plain_ms=plain_ms,
+         plan=k3.launch_plan(128)._asdict())
+    return dict(max_abs_err=0, plain_ms=plain_ms)
+
+
+def k3_bound_us(nn, close, n):
+    """The least time of one K3 call on these inputs, and what bounds it:
+    nn and close read once, n read once, the labels written once, over
+    the memory rate; against one compare of every row for each close row
+    the walk meets (what these inputs need), over the f32 peak."""
+    import torch
+    W, K = nn.shape
+    walked = int((close & (torch.arange(K, device=nn.device)
+                           < n[:, None])).sum())
+    ops_us = walked * K / PEAK_F32_FLOPS * 1e6
+    bytes_us = W * (9 * K + 4) / PEAK_BYTES_PER_S * 1e6
+    return max(ops_us, bytes_us), ("operations" if ops_us >= bytes_us
+                                   else "bytes")
+
+
+def no_sync(fn, what):
+    """``fn()`` under PyTorch's sync debug mode "error": any synchronizing
+    CUDA operation raises.  Returns what ``fn`` returned."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{what} synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def sweep_start(datasets, cfg):
+    """The state after the init and its map filter, with the hoisted data,
+    on the card, as ``run()`` (``datasets`` a Dataset) or ``run_batched``
+    (a list) reach it: (data, cur_map, x, resolved config, weights)."""
+    import torch
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.mapping.landmark_map import filter_map
+    from icm_slam_tpu_torch.solver import icm
+    if isinstance(datasets, list):
+        data, seed, x0, cfg, w = icm.prepare_fleet(datasets, cfg, "cuda")
+    else:
+        data = icm.prepare(datasets, cfg, "cuda")
+        cfg = icm.resolve_config(cfg, data)
+        x0 = torch.as_tensor(datasets.x0, device="cuda").to(data.dist.dtype)
+        seed, w = icm.seed_map(data, x0, cfg), weights(cfg, "cuda")
+    state, x, _ = icm._init(data, seed, x0, cfg, w)
+    cur = filter_map(state, cfg.cota, cfg.dist_thr, live_cap=cfg.map_run_cap)
+    return icm.hoist_compaction(data, cfg), cur, x, cfg, w
+
+
+def eager_sweeps(start, N):
+    """N sweeps of ``_refine_step`` one by one (and ``map_change``), as the
+    loop ran before the graph: (map, x, witnesses (N, ...), changes)."""
+    import torch
+    from icm_slam_tpu_torch.solver import icm
+    data, cur, x, cfg, w = start
+    wits, chgs = [], []
+    for _ in range(N):
+        new, x, wit = icm._refine_step(data, cur, x, cfg, w)
+        chgs.append(icm.map_change(new, cur, live_cap=cfg.map_run_cap))
+        wits.append(wit)
+        cur = new
+    return cur, x, torch.stack(wits), torch.stack(chgs)
+
+
+def graph_sweeps(start, N, timings):
+    """N sweeps through ``icm.refine_sweeps`` (one eager, a capture, N - 1
+    replays); the replays after the first run under the sync debug mode
+    "error", and their mean seconds go to ``timings["replay_s"]`` (from a
+    synchronized card to a synchronized card).  Returns what
+    ``eager_sweeps`` returns."""
+    import torch
+    from icm_slam_tpu_torch.solver import icm
+    data, cur, x, cfg, w = start
+    gen = icm.refine_sweeps(data, cur, x, cfg, w, N, change=True,
+                            timings=timings)
+    out = [next(gen) for _ in range(min(N, 2))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out += no_sync(lambda: list(gen), "a replayed sweep")
+    torch.cuda.synchronize()
+    timings["replay_s"] = (time.perf_counter() - t0) / max(N - 2, 1)
+    cur, x = out[-1][0], out[-1][1]
+    return (cur, x, torch.stack([o[2] for o in out]),
+            torch.stack([o[3] for o in out]))
+
+
+def same_sweeps(a, b):
+    import torch
+    (ma, xa, wa, ca), (mb, xb, wb, cb) = a, b
+    return (all(torch.equal(u, v) for u, v in zip(ma, mb))
+            and torch.equal(xa, xb) and torch.equal(wa, wb)
+            and torch.equal(ca, cb))
+
+
+def phase_graph(smi, N=30):
+    """23 (b)-(e): one batched sweep (+ map filter, + map_change) under the
+    sync debug mode "error" on the main world capped and uncapped and on
+    the fleet of eight; then N sweeps eager and from the graph, in turns
+    eager, graph, graph, eager, on the main world and the fleet of eight:
+    map, poses, witnesses and changes bitwise between every turn, replays
+    N - 1 a graph run (its first sweep is eager), K1 N times in each;
+    each turn's seconds a sweep (the graph's with its capture and first
+    eager sweep) and a graph turn's seconds a replay; one replay under the
+    sync debug mode and the profiler (its device time)."""
+    import dataclasses
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.solver import cuda_graph, icm
+    ds, _ = world_1833()
+    starts = {"main": sweep_start(ds, ICMConfig()),
+              "fleet8": sweep_start([d for d, _ in fleet_worlds()[:8]],
+                                    ICMConfig())}
+    data, cur, x, cfg, w = starts["main"]
+    check(0 < cfg.map_run_cap < cfg.L, f"main start not capped: {cfg}")
+    uncapped = dataclasses.replace(cfg, map_run_cap=0)
+    synced = {}
+    for what, (d, c, xx, cf, ww) in (("capped W=1", starts["main"]),
+                                     ("uncapped W=1", (data, cur, x,
+                                                       uncapped, w)),
+                                     ("capped W=8", starts["fleet8"])):
+        def one():
+            new, _, _ = icm._refine_step(d, c, xx, cf, ww)
+            return icm.map_change(new, c, live_cap=cf.map_run_cap)
+        one()                                 # lazy set-up outside the mode
+        no_sync(one, f"one batched sweep ({what})")
+        synced[what] = 0
+    emit(phase="sweep_host_syncs", sweeps=synced,
+         mode='torch.cuda.set_sync_debug_mode("error")', card=smi)
+    runs = {}
+    for name, start in starts.items():
+        turns, times, n_k1 = [], [], []
+        for kind in ("eager", "graph", "graph", "eager"):
+            timings = {}
+            replays = cuda_graph.REPLAYS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n = counted(
+                (lambda: graph_sweeps(start, N, timings)) if kind == "graph"
+                else (lambda: eager_sweeps(start, N)))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if kind == "graph":
+                check(cuda_graph.REPLAYS - replays == N - 1,
+                      f"{name}: {cuda_graph.REPLAYS - replays} replays in a "
+                      f"graph run of {N} sweeps; want {N - 1}")
+            check(n["k1"] == N and n["k2"] == 0 and n["k3"] == N,
+                  f"{name} {kind}: K1 {n['k1']}x, K2 {n['k2']}x, K3 "
+                  f"{n['k3']}x; want {N}, 0, {N}")
+            if turns:
+                check(same_sweeps(turns[0], out),
+                      f"{name}: the {kind} run differs from the first eager "
+                      f"run (map, poses, witnesses or changes)")
+            turns.append(out)
+            times.append(dict(kind=kind, sweep_s=secs / N,
+                              capture_s=timings.get("capture_s"),
+                              replay_s=timings.get("replay_s")))
+        eager = [t["sweep_s"] for t in times if t["kind"] == "eager"]
+        graph = [t["sweep_s"] for t in times if t["kind"] == "graph"]
+        gen = icm.refine_sweeps(*start, 4)
+        next(gen), next(gen)
+        replay = launches_and_syncs(lambda: next(gen))
+        runs[name] = dict(
+            W=1 if name == "main" else 8, N=N, turns=times,
+            eager_sweep_s=eager, graph_sweep_s=graph,
+            graph_over_eager=sum(graph) / sum(eager),
+            replay_s=[t["replay_s"] for t in times if t["kind"] == "graph"],
+            replay_profile={k: v for k, v in replay.items()
+                            if k != "top_kernels_ms_count"},
+            census=[int(v) for v in turns[0][0].nact.reshape(-1)],
+            replays_a_graph_run=N - 1, vs_eager="bitwise")
+    emit(phase="graph_vs_eager", order="eager, graph, graph, eager",
+         note="a graph run: the first sweep eager, then the capture, then "
+              "N - 1 replays; sweep_s includes the capture",
+         **runs, card=smi)
+    return runs
 
 
 PARENT_ROOT = os.path.join(HERE, "build", "parent")
@@ -2888,12 +3274,33 @@ LAUNCHED_BY = {
                                 "the small ba fleet, N=2 (phase 20)"),
     ("k1", (1840, 48, 128)): ("parallel_time",
                               "the 3 time-sharded sweeps, T=1833 padded "
-                              "to 1840 (phase 21)")}
+                              "to 1840 (phase 21)"),
+    ("k3", (1, 128)): ("main", "the default run, N=30 (phase 4): the "
+                               "filter after each sweep and the init's"),
+    ("k3", (1, 1024)): ("uncapped", "the uncapped run, N=3 (phase 5): "
+                                    "the filters and the init's merge"),
+    ("k3", (2, 128)): ("fleet_w2", "the fleet curve's W=2 run, N=30 "
+                                   "(phase 18)"),
+    ("k3", (2, 1024)): ("fleet_w2", "the fleet curve's W=2 run's init "
+                                    "merge (phase 18)"),
+    ("k3", (3, 128)): ("fleet_small", "the small capped fleet, N=3 "
+                                      "(phase 18)"),
+    ("k3", (3, 256)): ("fleet_small", "the small fleets' filters at "
+                                      "L=256 (phase 18)"),
+    ("k3", (4, 128)): ("fleet_w4", "the fleet curve's W=4 run, N=30 "
+                                   "(phase 18)"),
+    ("k3", (4, 1024)): ("fleet_uncapped", "the uncapped fleet of four, "
+                                          "N=3 (phase 18)"),
+    ("k3", (8, 128)): ("fleet_w8", "the fleet curve's W=8 run, N=30 "
+                                   "(phase 18)"),
+    ("k3", (8, 1024)): ("fleet_w8", "the fleet curve's W=8 run's init "
+                                    "merge (phase 18)")}
 
 
 def check_shapes_covered(launches):
     """Every shape a counted run gave a kernel must have its rows in the
-    kernel table (and with them its check against the plain version)."""
+    kernel table (and with them its check against the plain version).
+    """
     table = {s[:2] for s in KERNEL_SHAPES}
     met = {key for n in launches.values() for key in n["shapes"]}
     check(met <= table, f"shapes launched on a path without a row in "
@@ -2909,19 +3316,19 @@ def kernels_line(launches, checks, rows):
     def entry(name, source, replaces, kind, shape):
         main_row = next(r for r in rows if r["kernel"] == kind
                         and r["shape"] == list(shape)
-                        and r["nact"] == shape[2])
+                        and r["nact"] == shape[-1])
         shapes = []
         for r in rows:
             if r["kernel"] != kind:
                 continue
             key = (kind, tuple(r["shape"]))
+            by_run = {name: n["shapes"][key] for name, n in launches.items()
+                      if key in n.get("shapes", {})}
             run, by = LAUNCHED_BY[key]
             shapes.append(dict(
                 r, launched_by=by, library_ms=None,
                 launches=launches[run]["shapes"][key],
-                launches_by_run={name: n["shapes"][key]
-                                 for name, n in launches.items()
-                                 if key in n.get("shapes", {})}))
+                launches_by_run=by_run))
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches["all"][kind],
@@ -2938,7 +3345,9 @@ def kernels_line(launches, checks, rows):
         entry("nearest_landmark",
               "icm_slam_tpu_torch/csrc/nearest_landmark.cu",
               "icm_slam_tpu/ops/assoc_pallas.py:76", "k2",
-              (1833, 48, 1024))]
+              (1833, 48, 1024)),
+        entry("relabel_walk", "icm_slam_tpu_torch/csrc/relabel_walk.cu",
+              "icm_slam_tpu/mapping/landmark_map.py:219", "k3", (1, 128))]
 
 
 def main():
@@ -2988,12 +3397,15 @@ def main():
 
     k1 = timed("k1", phase_k1)
     k2 = timed("k2", phase_k2)
+    k3 = timed("k3", phase_k3)
     g = np.load(GOLDEN)
     launches, nacts = timed("main_uncapped", phase_main, g, smi)
     timed("small", phase_small, g)
     counts7, one_world = timed("profile", phase_profile, smi)
     for kind, counts in counts7.items():
         nacts[kind] += counts
+    # K3's rows: n = K and the fewest live rows a filter met
+    nacts["k3"] = [min(nacts["k1"])]
     ge = np.load(GOLDEN_ENGINES)
     n8, seq_res = timed("sequential", phase_sequential, ge, smi)
     nacts["k2"].append(seq_res.map_pos.shape[0])
@@ -3048,6 +3460,7 @@ def main():
     nacts.update(nacts21c)
     emit(phase="parallel_wall_seconds", seconds=time.perf_counter() - t21)
     launches["live_plot"] = timed("utils", phase_utils, smi)
+    timed("graph", phase_graph, smi)
     check_shapes_covered(launches)
     emit(phase="launches_by_shape", **{
         run: {f"{kind} {list(shape)}": c
@@ -3057,13 +3470,13 @@ def main():
     emit(phase="wall_seconds", **walls,
          since_build=time.perf_counter() - t0)
     launches["all"] = {k: sum(n[k] for n in launches.values())
-                       for k in ("k1", "k2")}
+                       for k in ("k1", "k2", "k3")}
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"],
                             fk["k2"], fmk["k2"])
     k1["max_abs_err"] = max(k1["max_abs_err"], fk["k1"], fmk["k1"], err21)
 
     print(json.dumps({"kernels": kernels_line(
-        launches, {"k1": k1, "k2": k2}, rows)}), flush=True)
+        launches, {"k1": k1, "k2": k2, "k3": k3}, rows)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -60,27 +60,31 @@ __device__ __forceinline__ void stage_wait() { __pipeline_wait_prior(0); }
 
 // One column against one point: d2 rounded as PyTorch rounds the separate
 // subtractions, products and sum, and the strict `<` of the running pair.
+// kSqrt compares sqrtf(d2) instead (IEEE-rounded: nvcc's default
+// -prec-sqrt=true, and no fast math), so `best` is then a distance.
+template <bool kSqrt = false>
 __device__ __forceinline__ void take_column(float px, float py, float2 m,
                                             int j, float& best, int& arg) {
   const float dx = px - m.x;
   const float dy = py - m.y;
   const float d2 = dx * dx + dy * dy;
-  if (d2 < best) {
-    best = d2;
+  const float key = kSqrt ? sqrtf(d2) : d2;
+  if (key < best) {
+    best = key;
     arg = j;
   }
 }
 
 // Lane `s` of S scans its columns of the staged chunk; `base` is the
 // chunk's first column in the table.
-template <int S>
+template <int S, bool kSqrt = false>
 __device__ __forceinline__ void scan_columns(float px, float py,
                                              const float2* sm, int n,
                                              int base, int s, float& best,
                                              int& arg) {
 #pragma unroll 4
   for (int j = s; j < n; j += S)
-    take_column(px, py, sm[j], base + j, best, arg);
+    take_column<kSqrt>(px, py, sm[j], base + j, best, arg);
 }
 
 // Combine the S lanes of a point (S consecutive lanes, S a power of two

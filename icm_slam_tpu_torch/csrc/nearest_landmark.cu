@@ -58,6 +58,13 @@
 // the result is bitwise what a launch on that world alone gives.  A single
 // world is W = 1.
 //
+// The sqrt key (landmark_map.update's association, the rule of JAX's
+// landmark_map.associate): `split<S, true>` compares sqrtf(d2), rounded by
+// IEEE, with the same strict `<` and the same butterfly, so the first
+// column whose distance rounds to the minimum wins, where the d2 key takes
+// the nearer of two columns whose distances round equal.  Its callers give
+// one frame, so it has the split kernel only.
+//
 // nact is read from device memory (a 0-d tensor), so the caller never
 // syncs to pass it.  A split kernel's lanes fetch the table's first S
 // columns while nact is on its way, and with nact <= S (the live counts a
@@ -89,7 +96,7 @@ constexpr int kGroupedFrom = 128;
     nact_ptr += w;                                     \
   } while (0)
 
-template <int S>
+template <int S, bool kSqrt>
 __global__ void nearest_landmark_split(const float* __restrict__ pts,
                                        const float* __restrict__ map,
                                        const int* __restrict__ nact_ptr,
@@ -114,7 +121,7 @@ __global__ void nearest_landmark_split(const float* __restrict__ pts,
   float best = INFINITY;
   int arg = 0;
   if (nact <= S) {
-    if (s < nact) icm::take_column(p.x, p.y, first, s, best, arg);
+    if (s < nact) icm::take_column<kSqrt>(p.x, p.y, first, s, best, arg);
   } else {
     for (int base = 0; base < nact; base += chunk) {
       const int n = min(chunk, nact - base);
@@ -122,13 +129,13 @@ __global__ void nearest_landmark_split(const float* __restrict__ pts,
       icm::stage_columns(map, base, n, sm);
       icm::stage_wait();
       __syncthreads();
-      icm::scan_columns<S>(p.x, p.y, sm, n, base, s, best, arg);
+      icm::scan_columns<S, kSqrt>(p.x, p.y, sm, n, base, s, best, arg);
     }
   }
   icm::combine_lanes<S>(best, arg);
   if (s == 0 && i < n_pts) {
     lab[i] = arg;
-    dist[i] = sqrtf(fmaxf(best, 0.0f));
+    dist[i] = kSqrt ? best : sqrtf(fmaxf(best, 0.0f));
   }
 }
 
@@ -204,7 +211,8 @@ __global__ void nearest_landmark_grouped(const float* __restrict__ pts,
 
 // The plan (lanes per point, blocks per world, threads per block, bytes of
 // shared memory) comes from ops/assoc.py::launch_plan; a plan this file has
-// no kernel for, one that does not cover a world's points, or a world
+// no kernel for (the sqrt key has the split kernel only), one that does
+// not cover a world's points, or a world
 // stride that would misalign the float2 columns, is refused with
 // cudaErrorInvalidValue before anything is launched.  pts (W, n_pts, 2),
 // nact (W,), lab and dist (W, n_pts) are contiguous; world w's L columns
@@ -212,8 +220,9 @@ __global__ void nearest_landmark_grouped(const float* __restrict__ pts,
 extern "C" int icm_nearest_landmark(const float* pts, const float* map,
                                     const int* nact, int W, int n_pts, int L,
                                     long long map_ws, int lanes, int blocks,
-                                    int threads, int shmem, int* lab,
-                                    float* dist, cudaStream_t stream) {
+                                    int threads, int shmem, int sqrt_key,
+                                    int* lab, float* dist,
+                                    cudaStream_t stream) {
   if (n_pts == 0 || W == 0) return 0;
   if (W < 0 || W > 65535 || map_ws < 0 || map_ws % 2 != 0 || blocks <= 0 ||
       threads < 32 || threads > 1024 || threads % 32 != 0 ||
@@ -222,12 +231,14 @@ extern "C" int icm_nearest_landmark(const float* pts, const float* map,
           static_cast<long long>(n_pts) * lanes)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = shmem / 8;
-#define ICM_LAUNCH(kernel)                                                  \
-  kernel<<<dim3(blocks, W), threads, shmem, stream>>>(                      \
+#define ICM_LAUNCH(...)                                                     \
+  __VA_ARGS__<<<dim3(blocks, W), threads, shmem, stream>>>(                 \
       pts, map, nact, n_pts, L, map_ws, chunk, lab, dist)
-  if (lanes == 32) {
-    ICM_LAUNCH(nearest_landmark_split<32>);
-  } else if (lanes == 1) {
+  if (lanes == 32 && sqrt_key) {
+    ICM_LAUNCH(nearest_landmark_split<32, true>);
+  } else if (lanes == 32) {
+    ICM_LAUNCH(nearest_landmark_split<32, false>);
+  } else if (lanes == 1 && !sqrt_key) {
     ICM_LAUNCH(nearest_landmark_grouped);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from icm_slam_tpu_torch.ops.assoc import nearest_landmark
+from icm_slam_tpu_torch.ops.relabel import relabel_walk
 
 
 class MapState(NamedTuple):
@@ -163,33 +164,21 @@ def update(state: MapState, ref_pos, ref_nact, pts, mask, dist_thr,
 
     pts: (B, 2); mask: (B,).  Returns (new_state, labels).  The
     association is the nearest-landmark kernel (K2; its plain version on
-    the CPU) over the live prefix ``arange(L) < ref_nact``, gated on the
-    distance it returns.  It takes the argmin of d^2 where ``associate``
-    takes that of sqrt(d^2): the same gate, and the same label except on a
-    tie of sqrt(d^2).  A fleet's frame (pts (W, B, 2), mask (W, B), the
-    state, ref_pos (W, L, 2) and ref_nact (W,) with the world axis) is one
-    launch of K2 at (W, 1, B, L), each world against its own table.
+    the CPU) over the live prefix ``arange(L) < ref_nact`` with the sqrt
+    key, the argmin of sqrt(d^2) that ``associate`` takes (on a tie of
+    sqrt(d^2) the first column wins), gated on the distance it returns.
+    A fleet's frame (pts (W, B, 2), mask (W, B), the state, ref_pos (W, L,
+    2) and ref_nact (W,) with the world axis) is one launch of K2 at (W,
+    1, B, L), each world against its own table.
     """
     L = ref_pos.shape[-2]
-    lab, dist = nearest_landmark(pts[..., None, :, :], ref_pos, ref_nact)
+    lab, dist = nearest_landmark(pts[..., None, :, :], ref_pos, ref_nact,
+                                 sqrt_key=True)
     labels = torch.where(dist[..., 0, :] > dist_thr, -1, lab[..., 0, :])
     labels = torch.where(mask, labels, L)
     labels, n_new = allocate_new_labels(labels, pts, mask, state.nact,
                                         dist_thr, quirk)
     return scatter_update(state, pts, labels, n_new), labels
-
-
-def _relabel_walk(nn, close, n, K):
-    """The reference's sequential relabel loop (order-dependent), on the host.
-
-    For each live row i in order with a close neighbour, every row labelled
-    like its neighbour nn[i] takes row i's label.  Integer-only, so the
-    host walk is bitwise the JAX ``while_loop``.
-    """
-    lab = np.arange(K, dtype=np.int32)
-    for i in np.flatnonzero(close[:n]):
-        lab = np.where(lab == lab[nn[i]], lab[i], lab)
-    return lab
 
 
 def filter_map(state: MapState, cota, dist_thr, live_cap: int = 0
@@ -205,11 +194,10 @@ def filter_map(state: MapState, cota, dist_thr, live_cap: int = 0
 
     ``state`` is one map or a fleet's W maps (a leading world axis); each
     world is filtered on its own, and its slice of a fleet's result is
-    bitwise the result of filtering it alone (on the CPU; on the card
-    the merge sums add in no fixed order).  The data-dependent relabel
-    loop runs on the host: one device-to-host copy of (n, close, nn) for
-    all worlds per call — the one host sync of a refine sweep — and, when
-    some world has a close pair, one copy of the W label vectors back.
+    bitwise the result of filtering it alone.  The order-dependent
+    relabel walk is ``ops.relabel.relabel_walk`` (K3 on the card, its
+    plain version on the CPU), one launch for all worlds: nothing is read
+    back to the host, so the filter makes no host sync.
     """
     if state.pos.dim() == 2:
         out = filter_map(MapState(*(a[None] for a in state)), cota,
@@ -246,15 +234,8 @@ def filter_map(state: MapState, cota, dist_thr, live_cap: int = 0
     nnd, nn = d.min(dim=2)
     close = live_k & (nnd < dist_thr)
 
-    host = torch.cat([n[:, None].to(torch.int64), close.to(torch.int64),
-                      nn.to(torch.int64)], dim=1).cpu().numpy()
-    if host[:, 1:K + 1].any():
-        lab = torch.from_numpy(np.stack([
-            _relabel_walk(h[K + 1:], h[1:K + 1], int(h[0]), K)
-            for h in host])).to(dev)
-    else:
-        lab = idx_k.to(torch.int32).expand(W, K)
-    lab = compact_labels(lab, live_k, K)
+    lab = compact_labels(relabel_walk(nn.to(torch.int32), close, n),
+                         live_k, K)
     n_final = torch.where(n > 0, torch.where(live_k, lab, -1).amax(dim=1)
                           + 1, 0).to(torch.int32)
 

@@ -10,6 +10,7 @@ then ``/usr/local/cuda/bin``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import glob
@@ -37,13 +38,34 @@ _SIGNATURES = {
     "icm_assoc_sums": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _F, _I, _I, _P,
                        _P, _P, _P),
     # pts, map, nact, W, n_pts, L, map_ws, lanes, blocks, threads, shmem,
-    # lab, dist, stream
+    # sqrt_key, lab, dist, stream
     "icm_nearest_landmark": (_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I,
-                             _P, _P, _P),
+                             _I, _P, _P, _P),
+    # nn, close, n, W, K, threads, shmem, lab, stream
+    "icm_relabel_walk": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
 _lib = None
+
+# kernel launches, keyed (kernel, shape of the call): every wrapper adds
+# one through ``count_launch`` where it launches its kernel, and nowhere
+# else (the plain versions do not count)
+LAUNCHES = collections.Counter()
+
+
+def count_launch(kernel: str, shape: tuple) -> None:
+    LAUNCHES[(kernel, shape)] += 1
+
+
+def launches(kernel: str) -> int:
+    """``kernel``'s launches since the counts were last cleared."""
+    return sum(n for (k, _), n in LAUNCHES.items() if k == kernel)
+
+
+def launch_shapes(kernel: str) -> dict:
+    """``kernel``'s launches by the shape of the call."""
+    return {s: n for (k, s), n in LAUNCHES.items() if k == kernel}
 
 
 def find_nvcc() -> str:

@@ -6,7 +6,12 @@ tensor ``nearest_landmark`` launches the hand-written kernel in
 ``nearest_landmark_plain``, the same contract in plain PyTorch.  The
 argmin is taken over squared distances with the first minimum winning, as
 in the JAX kernel; with no live column the label is 0 and the distance
-+inf (JAX: ~1e9 from its dead-column sentinel).
++inf (JAX: ~1e9 from its dead-column sentinel).  With ``sqrt_key`` the
+argmin is taken over the distances sqrt(d^2) instead (IEEE-rounded, the
+first minimum winning), the rule of JAX's ``landmark_map.associate``: on
+two columns whose d^2 differ but whose square roots round equal, it picks
+the first where the d^2 rule picks the nearer.  ``landmark_map.update``
+takes that key; the batched sweeps keep the d^2 rule of the Pallas kernel.
 
 Which of the kernel's variants a call takes is decided here, by
 ``launch_plan``, from the number of points and the table's width alone, so
@@ -19,7 +24,6 @@ table and live count, in one launch; the (T, B, 2) form is W = 1.
 """
 from __future__ import annotations
 
-import collections
 import functools
 from typing import NamedTuple
 
@@ -27,11 +31,9 @@ import torch
 
 from icm_slam_tpu_torch.ops import _build
 
-# kernel launches by nearest_landmark (the plain version does not count),
-# in all and by the call's shape: (T, B, L) for one world, (W, T, B, L)
-# for a fleet of W > 1
-LAUNCHES = 0
-LAUNCH_SHAPES = collections.Counter()
+# the launches are counted in ``_build.LAUNCHES`` as "nearest_landmark", by
+# the call's shape: (T, B, L) for one world, (W, T, B, L) for a fleet of
+# W > 1
 
 # columns a block keeps in shared memory at once (8 bytes each); a wider
 # table is scanned chunk by chunk
@@ -61,17 +63,19 @@ def plan_for(n_pts: int, L: int, lanes: int, threads: int = 128,
 
 
 @functools.lru_cache(maxsize=64)
-def launch_plan(n_pts: int, L: int) -> LaunchPlan:
+def launch_plan(n_pts: int, L: int, sqrt_key: bool = False) -> LaunchPlan:
     """The variant of the kernel for ``n_pts`` points against ``L`` columns.
 
     One frame (181 points) gets 32 lanes a point, so that it fills dozens
     of blocks and each lane scans a 32nd of the columns; a whole run (88k
     points) gets the grouped kernel, a thread a point.  No caller gives a
     point count between those two; ``chip_smoke.py`` times both variants at
-    every shape the callers give (its ``k2_variants_timed`` line).  Nothing
-    here asks the card anything; with no point, no block is launched.
+    every shape the callers give (its ``k2_variants_timed`` line).  The
+    sqrt key has the 32-lane kernel only (its callers give one frame).
+    Nothing here asks the card anything; with no point, no block is
+    launched.
     """
-    if n_pts <= _LANES32_MAX_POINTS:
+    if n_pts <= _LANES32_MAX_POINTS or sqrt_key:
         return plan_for(n_pts, L, lanes=32, threads=256)
     return plan_for(n_pts, L, lanes=1)
 
@@ -128,13 +132,19 @@ def live_d2(pts, map_pos, nact):
     return torch.where(live, dx * dx + dy * dy, float("inf"))
 
 
-def nearest_landmark_plain(pts, map_pos, nact, lanes: int = 1):
+def nearest_landmark_plain(pts, map_pos, nact, lanes: int = 1,
+                           sqrt_key: bool = False):
     """pts (T, B, 2) f32; map_pos (L, 2) f32; nact: live count (int or
     0-d tensor) — or the same with a leading world axis W (nact (W,));
     lanes: split the columns as the kernel's variant of that many lanes
-    does (the result is the same for every value).  Returns (labels
-    (..., T, B) int32, min_dist (..., T, B) f32)."""
-    best, lab = lane_min(live_d2(pts, map_pos, nact), lanes)
+    does (the result is the same for every value); sqrt_key: the argmin
+    of sqrt(d^2), not of d^2.  Returns (labels (..., T, B) int32,
+    min_dist (..., T, B) f32)."""
+    d2 = live_d2(pts, map_pos, nact)
+    if sqrt_key:
+        best, lab = lane_min(torch.sqrt(d2), lanes)
+        return lab.to(torch.int32), best
+    best, lab = lane_min(d2, lanes)
     return lab.to(torch.int32), torch.sqrt(torch.clamp(best, min=0.0))
 
 
@@ -172,11 +182,11 @@ def _check(pts, map_pos, nact):
     return pts, map_pos, nact
 
 
-def launch(pts, map_pos, nact, plan: LaunchPlan):
+def launch(pts, map_pos, nact, plan: LaunchPlan, sqrt_key: bool = False):
     """Launch K2 on CUDA tensors with ``plan`` (blocks per world); raises
-    when the card refuses it.  ``nearest_landmark`` is the caller; the
-    checks on the card call this with every variant at one shape."""
-    global LAUNCHES
+    when the card refuses it (the sqrt key with a plan of one lane a
+    point among others).  ``nearest_landmark`` is the caller; the checks
+    on the card call this with every variant at one shape."""
     one = pts.dim() == 3
     pts, map_pos, nact = _check(pts, map_pos, nact)
     W, T, B, _ = pts.shape
@@ -188,23 +198,24 @@ def launch(pts, map_pos, nact, plan: LaunchPlan):
         with _build.on_device(pts.device):
             err = fn(pts.data_ptr(), map_pos.data_ptr(), nact.data_ptr(), W,
                      T * B, L, _build.world_stride(map_pos), plan.lanes,
-                     plan.blocks, plan.threads, plan.shmem, lab.data_ptr(),
-                     dist.data_ptr(), _build.current_stream(pts.device))
+                     plan.blocks, plan.threads, plan.shmem, int(sqrt_key),
+                     lab.data_ptr(), dist.data_ptr(),
+                     _build.current_stream(pts.device))
         _build.check(err, "icm_nearest_landmark")
-        LAUNCHES += 1
-        LAUNCH_SHAPES[(T, B, L) if W == 1 else (W, T, B, L)] += 1
+        _build.count_launch("nearest_landmark",
+                            (T, B, L) if W == 1 else (W, T, B, L))
     return (lab[0], dist[0]) if one else (lab, dist)
 
 
-def nearest_landmark(pts, map_pos, nact):
+def nearest_landmark(pts, map_pos, nact, sqrt_key: bool = False):
     """K2 on CUDA tensors, the plain version on CPU tensors (same contract
     as ``nearest_landmark_plain``).  A fleet of W worlds is one launch."""
     if pts.is_cpu:
-        return nearest_landmark_plain(pts, map_pos, nact)
+        return nearest_landmark_plain(pts, map_pos, nact, sqrt_key=sqrt_key)
     if not pts.is_cuda:
         raise ValueError(f"nearest_landmark: unsupported device "
                          f"{pts.device}")
     nact = _build.as_count(nact, pts.device)
     return launch(pts, map_pos, nact,
                   launch_plan(pts.shape[-3] * pts.shape[-2],
-                              map_pos.shape[-2]))
+                              map_pos.shape[-2], sqrt_key), sqrt_key)

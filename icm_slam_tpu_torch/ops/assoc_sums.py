@@ -18,7 +18,6 @@ against its own columns and live count, in one launch of W * T blocks; the
 """
 from __future__ import annotations
 
-import collections
 import functools
 from typing import NamedTuple
 
@@ -27,11 +26,8 @@ import torch
 from icm_slam_tpu_torch.ops import _build
 from icm_slam_tpu_torch.ops.assoc import lane_min, live_d2
 
-# kernel launches by associate_and_sums (the plain version does not count),
-# in all and by the call's shape: (T, B, K) for one world, (W, T, B, K)
-# for a fleet of W > 1
-LAUNCHES = 0
-LAUNCH_SHAPES = collections.Counter()
+# the launches are counted in ``_build.LAUNCHES`` as "assoc_sums", by the
+# call's shape: (T, B, K) for one world, (W, T, B, K) for a fleet of W > 1
 
 _MAX_SHMEM = 48 * 1024
 LANES = 8           # lanes of a warp that share a beam in the argmin pass
@@ -123,7 +119,6 @@ def _check(pts, map_pos, mask, nact):
 def associate_and_sums(pts, map_pos, mask, nact, dist_thr):
     """K1 on CUDA tensors, the plain version on CPU tensors (same contract
     as ``associate_and_sums_plain``).  A fleet of W worlds is one launch."""
-    global LAUNCHES
     if pts.is_cpu:
         return associate_and_sums_plain(pts, map_pos, mask, nact, dist_thr)
     if not pts.is_cuda:
@@ -148,6 +143,6 @@ def associate_and_sums(pts, map_pos, mask, nact, dist_thr):
                      plan.shmem, lab.data_ptr(), d2min.data_ptr(),
                      sums.data_ptr(), _build.current_stream(pts.device))
         _build.check(err, "icm_assoc_sums")
-        LAUNCHES += 1
-        LAUNCH_SHAPES[(T, B, K) if W == 1 else (W, T, B, K)] += 1
+        _build.count_launch("assoc_sums",
+                            (T, B, K) if W == 1 else (W, T, B, K))
     return (lab[0], d2min[0], sums[0]) if one else (lab, d2min, sums)

@@ -7,7 +7,9 @@ refinement sweeps (batched, sequential, or the bundle-adjustment backends
 of ``models/``: ``ba`` and ``windowed_ba``), each followed by the map
 filter.  The per-sweep witnesses and map changes stay on the device
 during a segment of sweeps and are checked at its end, before any
-observer sees the segment's state, as the fused JAX loop does.
+observer sees the segment's state, as the fused JAX loop does.  On the
+card the batched sweeps after the first are replays of one captured CUDA
+graph (``refine_sweeps``), the counterpart of that fused loop.
 
 ``run_batched`` is fleet mode: W same-shape worlds through the engines at
 once, on a leading world axis (the JAX package's ``vmap``), so that W
@@ -32,6 +34,7 @@ from icm_slam_tpu_torch.frontend.scan_filter import (filter_scans,
 from icm_slam_tpu_torch.mapping.landmark_map import (MapState, empty_map,
                                                      filter_map,
                                                      seed_from_clusters)
+from icm_slam_tpu_torch.solver.cuda_graph import CapturedSweep
 from icm_slam_tpu_torch.solver.sweeps import (SweepData, auto_obs_cap,
                                               compact_data, init_sweep,
                                               init_sweep_batched,
@@ -265,35 +268,87 @@ def hoist_compaction(data: SweepData, config: ICMConfig) -> SweepData:
     return compact_data(data, cap) if cap else data
 
 
+def uses_graph(config: ICMConfig, device: torch.device) -> bool:
+    """Whether ``refine_sweeps`` replays the sweeps from a CUDA graph: on
+    a CUDA device, for the batched sweep with the default model.  The
+    sequential, ``ba`` and ``windowed_ba`` sweeps and a model's hooks run
+    eagerly; so does a time mesh's sweep (``refine_sweep_batched(...,
+    mesh=)``, which no loop here runs)."""
+    return (device.type == "cuda" and config.sweep_mode == "batched"
+            and config.model is None)
+
+
+def refine_sweeps(data: SweepData, cur_map: MapState, x, config: ICMConfig,
+                  w, n_iters: int, change: bool = False, timings=None):
+    """``n_iters`` refinement sweeps; yields (cur_map, x, witness, change)
+    after each (change: ``map_change`` against the sweep's input map, or
+    None without ``change``).  Nothing waits for the device.
+
+    Where ``uses_graph``, the first sweep runs eagerly and the others are
+    replays of one CUDA graph that captures a sweep (``_refine_step`` and
+    the change) after it: the port's counterpart of JAX's fused
+    ``_refine_loop_jit``.  The yielded map and poses are then the graph's
+    static buffers, which the next replay overwrites (the witness and the
+    change are copies); ``data`` and ``w`` stay in place meanwhile.  A
+    capture that fails raises: the card never falls back to eager sweeps.
+    The capture's seconds go to ``timings["capture_s"]`` when given (0
+    without a capture).
+    """
+    def sweep(cur_map, x):
+        new_map, x, wit = _refine_step(data, cur_map, x, config, w)
+        return new_map, x, wit, (map_change(new_map, cur_map,
+                                            live_cap=config.map_run_cap)
+                                 if change else None)
+
+    graphed, graph = uses_graph(config, x.device), None
+    timings = {} if timings is None else timings
+    timings["capture_s"] = 0.0
+    for k in range(n_iters):
+        if k == 0 or not graphed:
+            cur_map, x, wit, chg = sweep(cur_map, x)
+            yield cur_map, x, wit, chg
+            continue
+        if graph is None:
+            t0 = time.perf_counter()
+            graph = CapturedSweep(sweep, cur_map, x)
+            timings["capture_s"] = time.perf_counter() - t0
+        graph.replay()
+        wit, chg = graph.outs
+        yield (graph.map, graph.x, wit.clone(),
+               None if chg is None else chg.clone())
+
+
 def refine_loop(data: SweepData, cur_map: MapState, x, config: ICMConfig, w,
                 n_iters: int, stride: int = 0, first: int = 0,
-                on_segment=None):
-    """``n_iters`` refinement sweeps in segments of ``stride`` sweeps (0:
-    one segment).  At the end of each segment its witnesses are checked
-    on the host, then ``on_segment(k, cur_map, x)`` fires with k the index
-    of the segment's last sweep (sweeps are numbered from ``first``).
+                on_segment=None, timings=None):
+    """``n_iters`` refinement sweeps (``refine_sweeps``) in segments of
+    ``stride`` sweeps (0: one segment).  At the end of each segment its
+    witnesses are checked on the host, then ``on_segment(k, cur_map, x)``
+    fires on copies of the state, with k the index of the segment's last
+    sweep (sweeps are numbered from ``first``).
 
     Returns (cur_map, x, changes (n_iters, 3) NumPy).  Within a segment
-    nothing waits for the device but the map filter's relabel walk.
+    nothing waits for the device; ``timings`` gets ``capture_s``.
     """
     stride = stride if stride > 0 else max(n_iters, 1)
+    sweeps = refine_sweeps(data, cur_map, x, config, w, n_iters, change=True,
+                           timings=timings)
     changes = []
     k = first
     while k < first + n_iters:
         seg = min(stride, first + n_iters - k)
         wits, chgs = [], []
         for _ in range(seg):
-            prev = cur_map
-            cur_map, x, wit = _refine_step(data, prev, x, config, w)
-            chgs.append(map_change(cur_map, prev,
-                                   live_cap=config.map_run_cap))
+            cur_map, x, wit, chg = next(sweeps)
             wits.append(wit)
+            chgs.append(chg)
         for j, wv in enumerate(torch.stack(wits).cpu().numpy()):
             check_witness(wv, config, f"refinement sweep {k + j}")
         changes.append(torch.stack(chgs).cpu().numpy())
         k += seg
         if on_segment is not None:
-            on_segment(k - 1, cur_map, x)
+            on_segment(k - 1, MapState(*(a.clone() for a in cur_map)),
+                       x.clone())
     changes = (np.concatenate(changes) if changes
                else np.zeros((0, 3), np.float32))
     return cur_map, x, changes
@@ -394,7 +449,8 @@ def run(dataset: Dataset, config: ICMConfig, device,
         stride = 0
     cur_map, x, changes = refine_loop(
         data, cur_map, x, config, w, n_iters, stride=stride,
-        on_segment=observe if (callback is not None or verbose) else None)
+        on_segment=observe if (callback is not None or verbose) else None,
+        timings=timings)
     _sync(device)
     timings["refine_s"] = time.perf_counter() - t0
     timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
@@ -471,8 +527,9 @@ def run_batched(datasets, config: ICMConfig, device,
     and every sweep's witnesses are checked per world after the run,
     naming the world.  Returns one ``ICMResult`` per world (``changes``
     empty), each with the shared timings ``prepare_s``, ``init_s``,
-    ``hoist_s``, ``refine_s``, ``refine_per_iter_s``, ``pipeline_s``
-    (init to the last sweep) and ``per_world_s``.
+    ``hoist_s``, ``refine_s`` (with ``capture_s``, ``refine_sweeps``'s
+    CUDA-graph capture), ``refine_per_iter_s``, ``pipeline_s`` (init to
+    the last sweep) and ``per_world_s``.
 
     Every world has the same (T, n_beams) shape and runs under the merged
     config of ``resolve_fleet_config``.
@@ -529,8 +586,8 @@ def run_batched(datasets, config: ICMConfig, device,
 
     t0 = time.perf_counter()
     wits = []
-    for _ in range(n_iters):
-        cur_map, x, wit = _refine_step(data, cur_map, x, config, w)
+    for cur_map, x, wit, _ in refine_sweeps(data, cur_map, x, config, w,
+                                            n_iters, timings=timings):
         wits.append(wit)
     _sync(device)
     timings["refine_s"] = time.perf_counter() - t0

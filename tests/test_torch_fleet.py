@@ -326,11 +326,11 @@ def test_plain_k1_world_axis_is_each_world_alone(lanes):
         for a, b in zip(out, one):
             assert torch.equal(a[w], b)
     # the wrapper on CPU tensors is the plain version, and counts nothing
-    before = (k1.LAUNCHES, dict(k1.LAUNCH_SHAPES))
+    before = _build.launch_shapes("assoc_sums")
     wrapped = k1.associate_and_sums(pts, mp, mask, nact, 1.5)
     assert all(torch.equal(a, b) for a, b in zip(
         wrapped, k1.associate_and_sums_plain(pts, mp, mask, nact, 1.5)))
-    assert (k1.LAUNCHES, dict(k1.LAUNCH_SHAPES)) == before
+    assert _build.launch_shapes("assoc_sums") == before
 
 
 @pytest.mark.parametrize("lanes", [1, 32])

@@ -24,12 +24,16 @@ same fleet on the CPU, census exact and poses atol 1e-3; on the GPU,
 its ``run()`` with the merged config.  ``utils.profiling`` on the card:
 ``PhaseTimer`` with ``block_on`` reads at least 0.9 of the launches'
 CUDA-event time, and ``device_trace``'s kernel events hold one K1 and one
-K2 launch.
+K2 launch.  K3 (the map filter's relabel walk) against its plain walk,
+bitwise; K2's sqrt key against its plain version, and its tie rule; the
+refine sweeps replayed from a CUDA graph bitwise the same sweeps one by
+one, with each kernel counted once a sweep; a capture that fails raises.
 """
 import numpy as np
 import pytest
 import torch
 
+from icm_slam_tpu_torch.ops import _build
 from icm_slam_tpu_torch.ops import assoc as k2
 from icm_slam_tpu_torch.ops import assoc_sums as k1
 
@@ -57,9 +61,9 @@ def _inputs(T, B, K, seed, dev):
 def test_k1_kernel_matches_plain(dev, nact):
     pts, mp, mask = _inputs(257, 48, 128, 3, dev)
     n = torch.tensor(nact, dtype=torch.int32, device=dev)
-    before = k1.LAUNCHES
+    before = _build.launches("assoc_sums")
     lab, d2, sums = k1.associate_and_sums(pts, mp, mask, n, 1.0)
-    assert k1.LAUNCHES == before + 1
+    assert _build.launches("assoc_sums") == before + 1
     lab_p, d2_p, sums_p = k1.associate_and_sums_plain(pts, mp, mask, n, 1.0)
     assert torch.equal(lab, lab_p)
     assert torch.equal(d2, d2_p)
@@ -70,9 +74,9 @@ def test_k1_kernel_matches_plain(dev, nact):
 def test_k2_kernel_matches_plain(dev, nact):
     pts, mp, _ = _inputs(33, 48, 1024, 4, dev)
     n = torch.tensor(nact, dtype=torch.int32, device=dev)
-    before = k2.LAUNCHES
+    before = _build.launches("nearest_landmark")
     lab, dist = k2.nearest_landmark(pts, mp, n)
-    assert k2.LAUNCHES == before + 1
+    assert _build.launches("nearest_landmark") == before + 1
     lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, n)
     assert torch.equal(lab, lab_p)
     fin = torch.isfinite(dist_p)
@@ -131,10 +135,10 @@ def test_k2_variant_matches_plain(dev, lanes, threads, shape):
     T, B, L = shape
     pts, mp, _ = _inputs(T, B, L, 8, dev)
     plan = k2.plan_for(T * B, L, lanes=lanes, threads=threads)
-    before = k2.LAUNCHES
+    before = _build.launches("nearest_landmark")
     for nact in (0, 1, lanes - 1, lanes + 1, 37, 100, 127, L - 1, L):
         _hold_k2(pts, mp, nact, plan, dev)
-    assert k2.LAUNCHES == before + 9
+    assert _build.launches("nearest_landmark") == before + 9
 
 
 @pytest.mark.parametrize("shape,lanes", [((1, 181, 1024), 32),
@@ -249,9 +253,9 @@ def test_update_through_k2_matches_cpu(dev, quirk):
                          torch.tensor(700, dtype=torch.int32, device=d),
                          t(pts), t(mask), 1.0, quirk)
 
-    before = k2.LAUNCHES
+    before = _build.launches("nearest_landmark")
     st_g, lab_g = call(dev)
-    assert k2.LAUNCHES == before + 1
+    assert _build.launches("nearest_landmark") == before + 1
     st_c, lab_c = call("cpu")
     assert torch.equal(lab_g.cpu(), lab_c)
     assert int(st_g.nact) == int(st_c.nact) > 720
@@ -302,9 +306,9 @@ def test_small_run_gpu_matches_cpu(dev):
     from icm_slam_tpu_torch.solver.icm import run
     ds = synthetic_world(T=240, n_landmarks=12, seed=7)
     cfg = ICMConfig(L=256, cota=20.0, N=3)
-    before = k1.LAUNCHES
+    before = _build.launches("assoc_sums")
     gpu = run(ds, cfg, dev)
-    assert k1.LAUNCHES == before + 3
+    assert _build.launches("assoc_sums") == before + 3
     cpu = run(ds, cfg, "cpu")
     assert gpu.map_pos.shape == cpu.map_pos.shape
     for f in ("x_init", "x", "map_pos"):
@@ -321,10 +325,11 @@ def test_small_engine_runs_gpu_match_cpu(dev, kw):
     from icm_slam_tpu_torch.solver.icm import run
     ds = synthetic_world(T=120, n_landmarks=10, seed=7)
     cfg = ICMConfig(L=256, cota=20.0, **kw)
-    before = k2.LAUNCHES
+    before = _build.launches("nearest_landmark")
     gpu = run(ds, cfg, dev)
     per_sweep = ds.T if kw.get("sweep_mode") == "sequential" else 1
-    assert k2.LAUNCHES - before == ds.T - 1 + cfg.N * per_sweep
+    assert _build.launches("nearest_landmark") - before == \
+        ds.T - 1 + cfg.N * per_sweep
     cpu = run(ds, cfg, "cpu")
     assert gpu.map_pos.shape == cpu.map_pos.shape
     for f in ("x_init", "x", "map_pos"):
@@ -348,10 +353,10 @@ def test_k1_world_axis_is_each_world_alone(dev, shape):
     assert not mp.is_contiguous()
     nact = torch.tensor([0, 1, K // 2 + 3, K][:W], dtype=torch.int32,
                         device=dev)
-    before = k1.LAUNCHES
+    before = _build.launches("assoc_sums")
     lab, d2, sums = k1.associate_and_sums(pts, mp, mask, nact, 1.5)
-    assert k1.LAUNCHES == before + 1
-    assert k1.LAUNCH_SHAPES[(W, T, B, K)] >= 1
+    assert _build.launches("assoc_sums") == before + 1
+    assert _build.launch_shapes("assoc_sums").get((W, T, B, K), 0) >= 1
     again = k1.associate_and_sums(pts, mp, mask, nact, 1.5)
     assert all(torch.equal(a, b) for a, b in zip((lab, d2, sums), again))
     lab_p, d2_p, sums_p = k1.associate_and_sums_plain(pts, mp, mask, nact,
@@ -373,10 +378,10 @@ def test_k2_world_axis_is_each_world_alone(dev, lanes, threads, shape):
     nact = torch.tensor([0, 1, 37, L][:W - 1] + [L], dtype=torch.int32,
                         device=dev)
     plan = k2.plan_for(T * B, L, lanes=lanes, threads=threads)
-    before = k2.LAUNCHES
+    before = _build.launches("nearest_landmark")
     lab, dist = k2.launch(pts, mp, nact, plan)
-    assert k2.LAUNCHES == before + 1
-    assert k2.LAUNCH_SHAPES[(W, T, B, L)] >= 1
+    assert _build.launches("nearest_landmark") == before + 1
+    assert _build.launch_shapes("nearest_landmark").get((W, T, B, L), 0) >= 1
     lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, nact)
     assert torch.equal(lab, lab_p)
     fin = torch.isfinite(dist_p)
@@ -400,10 +405,11 @@ def test_fleet_run_gpu_matches_cpu(dev, map_run_cap):
     worlds = [synthetic_world(T=240, n_landmarks=12, seed=s)
               for s in (7, 10, 11)]
     cfg = ICMConfig(L=256, cota=20.0, N=3, map_run_cap=map_run_cap)
-    b1, b2 = k1.LAUNCHES, k2.LAUNCHES
+    b1, b2 = _build.launches("assoc_sums"), _build.launches("nearest_landmark")
     gpu = run_batched(worlds, cfg, dev)
     # one launch a sweep for all three worlds: K1 capped, K2 uncapped
-    assert (k1.LAUNCHES - b1, k2.LAUNCHES - b2) == \
+    assert (_build.launches("assoc_sums") - b1,
+            _build.launches("nearest_landmark") - b2) == \
         ((3, 0) if map_run_cap else (0, 3))
     cpu = run_batched(worlds, cfg, "cpu")
     for g, c in zip(gpu, cpu):
@@ -506,3 +512,131 @@ def test_device_trace_records_the_kernels(dev, tmp_path):
                  if e.get("cat") == "kernel"]
     assert sum("assoc_sums" in s for s in names) == 1, names
     assert sum("nearest_landmark" in s for s in names) == 1, names
+
+
+def _walk_inputs(W, K, ns, seed, chained, dev):
+    rng = np.random.default_rng(seed)
+    if chained:
+        nn = np.minimum(np.arange(K) + 1, K - 1)[None].repeat(W, 0)
+        close = np.ones((W, K), bool)
+    else:
+        nn = rng.integers(0, K, (W, K))
+        close = rng.uniform(size=(W, K)) < 0.3
+    return (torch.from_numpy(nn.astype(np.int32)).to(dev),
+            torch.from_numpy(close).to(dev),
+            torch.tensor(ns, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("chained", [False, True])
+@pytest.mark.parametrize("W,K,ns", [(1, 8, [8]), (3, 128, [0, 37, 128]),
+                                    (1, 1024, [1]), (2, 2048, [2048, 999]),
+                                    (1, 100, [100])])
+def test_k3_matches_plain(dev, W, K, ns, chained):
+    """K3 against the plain walk, bitwise, one launch for all worlds; a
+    chained walk relabels at every step (two barriers each)."""
+    from icm_slam_tpu_torch.ops import relabel as k3
+    ins = _walk_inputs(W, K, ns, K + W, chained, dev)
+    before = _build.launches("relabel_walk")
+    lab = k3.relabel_walk(*ins)
+    assert _build.launches("relabel_walk") == before + 1
+    assert torch.equal(lab, k3.relabel_walk_plain(*ins))
+
+
+def test_k2_sqrt_key_matches_plain(dev):
+    """The sqrt key against its plain version on a sqrt tie of unequal
+    d^2 (column 0 wins, where the d^2 key takes column 1) and on a frame
+    of random points; the grouped kernel refuses the sqrt key."""
+    rng = np.random.default_rng(0)
+    while True:
+        b = rng.uniform(0.5, 0.9, 2).astype(np.float32)
+        r, a = np.float32(np.hypot(*b)), rng.uniform(0, 2 * np.pi)
+        ref = np.stack([np.array([r * np.cos(a), r * np.sin(a)],
+                                 np.float32), b])
+        d2 = torch.from_numpy(ref).pow(2).sum(-1)
+        if d2[0] > d2[1] and torch.sqrt(d2[0]) == torch.sqrt(d2[1]):
+            break
+    pts = torch.zeros((1, 1, 2), device=dev)
+    mp = torch.from_numpy(ref).to(dev)
+    n = torch.tensor(2, dtype=torch.int32, device=dev)
+    assert int(k2.nearest_landmark(pts, mp, n, sqrt_key=True)[0][0, 0]) == 0
+    assert int(k2.nearest_landmark(pts, mp, n)[0][0, 0]) == 1
+    pts, mp, _ = _inputs(1, 181, 1024, 5, dev)
+    for nact in (0, 1, 37, 1024):
+        n = torch.tensor(nact, dtype=torch.int32, device=dev)
+        lab, dist = k2.nearest_landmark(pts, mp, n, sqrt_key=True)
+        lab_p, dist_p = k2.nearest_landmark_plain(pts, mp, n, sqrt_key=True)
+        assert torch.equal(lab, lab_p) and torch.equal(dist, dist_p)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        k2.launch(pts, mp, n, k2.plan_for(181, 1024, lanes=1), sqrt_key=True)
+
+
+def _hold_graph_to_eager(dev):
+    """``refine_sweeps`` on ``dev`` (one eager sweep, a capture, replays)
+    against the same sweeps one by one: map, poses, witnesses and changes
+    bitwise; N - 1 replays, and each kernel counted once a sweep."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver import cuda_graph, icm
+    ds = synthetic_world(T=240, n_landmarks=12, seed=7)
+    cfg = ICMConfig(L=256, cota=20.0, N=4)
+    start = icm.run(ds, cfg, dev, n_iters=0)
+    data = icm.prepare(ds, cfg, dev)
+    cfg = icm.resolve_config(cfg, data)
+    data = icm.hoist_compaction(data, cfg)
+    w = weights(cfg, dev)
+    pos = torch.zeros((cfg.L, 2), device=dev)
+    counts = torch.zeros((cfg.L,), device=dev)
+    k = start.map_pos.shape[0]
+    pos[:k] = torch.from_numpy(start.map_pos).to(dev)
+    counts[:k] = torch.from_numpy(start.map_counts).to(dev)
+    cur0 = icm.MapState(pos, counts,
+                        torch.tensor(k, dtype=torch.int32, device=dev))
+    x0 = torch.from_numpy(start.x_init).to(dev)
+    cur, x, eager = cur0, x0, []
+    for _ in range(cfg.N):
+        new, x, wit = icm._refine_step(data, cur, x, cfg, w)
+        eager.append((wit, icm.map_change(new, cur,
+                                          live_cap=cfg.map_run_cap)))
+        cur = new
+    replays = cuda_graph.REPLAYS
+    n1, n3 = _build.launches("assoc_sums"), _build.launches("relabel_walk")
+    timings = {}
+    graph = [(m, xx, wit, chg) for m, xx, wit, chg in icm.refine_sweeps(
+        data, cur0, x0, cfg, w, cfg.N, change=True, timings=timings)]
+    assert cuda_graph.REPLAYS - replays == cfg.N - 1
+    assert _build.launches("assoc_sums") - n1 == cfg.N
+    assert _build.launches("relabel_walk") - n3 == cfg.N
+    assert timings["capture_s"] > 0
+    for (wit, chg), (_, _, gw, gc) in zip(eager, graph):
+        assert torch.equal(wit, gw) and torch.equal(chg, gc)
+    m, xx = graph[-1][:2]
+    assert torch.equal(xx, x)
+    assert all(torch.equal(a, b) for a, b in zip(m, cur))
+
+
+def test_graph_sweeps_equal_eager_sweeps(dev):
+    _hold_graph_to_eager(dev)
+
+
+def test_graph_sweeps_on_a_card_that_is_not_current(dev):
+    """The capture and the replays go to the sweep's own card, not to the
+    current one: on card 1 with card 0 current, still bitwise eager."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    with torch.cuda.device(0):
+        _hold_graph_to_eager(torch.device("cuda:1"))
+
+
+def test_a_capture_that_fails_raises(dev):
+    """A sweep that reads the card from the host cannot be captured: the
+    capture raises (nothing falls back to eager sweeps)."""
+    from icm_slam_tpu_torch.mapping.landmark_map import empty_map
+    from icm_slam_tpu_torch.solver.cuda_graph import CapturedSweep
+
+    def sweep(m, x):
+        return m, x + float(x.sum()), x.sum()
+    x = torch.ones(4, device=dev)
+    sweep(empty_map(4, device=dev), x)
+    with pytest.raises(RuntimeError):
+        CapturedSweep(sweep, empty_map(4, device=dev), x)

@@ -83,7 +83,7 @@ def test_k2_plain_matches_jax(nact):
 def test_cpu_dispatch_runs_plain_and_counts_nothing():
     pts, mp, mask = _k1_inputs()
     nact = torch.tensor(50, dtype=torch.int32)
-    before = (k1.LAUNCHES, k2.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     out = k1.associate_and_sums(tf32(pts), tf32(mp), torch.from_numpy(mask),
                                 nact, 1.0)
     ref = k1.associate_and_sums_plain(tf32(pts), tf32(mp),
@@ -94,7 +94,9 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
     ref = k2.nearest_landmark_plain(tf32(pts), tf32(mp), nact)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert (k1.LAUNCHES, k2.LAUNCHES) == before == (0, 0)
+    assert dict(_build.LAUNCHES) == before
+    assert _build.launches("assoc_sums") == 0
+    assert _build.launches("nearest_landmark") == 0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "mask", "nact",
@@ -133,7 +135,7 @@ def test_build_key_and_missing_nvcc(monkeypatch):
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert [p.rsplit("/", 1)[-1] for p in _build._sources()] == \
-        ["assoc_sums.cu", "nearest_landmark.cu"]
+        ["assoc_sums.cu", "nearest_landmark.cu", "relabel_walk.cu"]
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
