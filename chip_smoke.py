@@ -106,8 +106,8 @@ nonzero and the final line is not printed:
    and closure count, and the final accepted pairs, equal JAX's; the ATE
    after closure within 10% of JAX's; then ``python -m
    icm_slam_tpu_torch run --dataset synthetic --frames 600 --iters 3
-   --loop-close`` as a subprocess, its file and its printed closure count
-   checked.
+   --loop-close`` as a subprocess, its file, its printed closure count
+   and its census (JAX's) checked.
    Phases 13, 15 and 16 also profile one sweep from the run's state
    (kernel launches, host syncs), as phase 7 does.
 18. fleet mode (``solver.icm.run_batched``): (a) both kernels with a world
@@ -236,11 +236,32 @@ nonzero and the final line is not printed:
    turn's seconds a replay; then one replay's device time and launches
    under the profiler (its idle share against the replay's seconds).
 
+24. the batched init replayed from one CUDA graph: the main world's and
+   the fleet of eight's (phase 18's worlds) init through
+   ``BatchedInit``'s steps one by one (``eager_init``) and through
+   ``init_sweep_batched``, the graph
+   (the first chunk eager, a capture, nc - 1 = 57 replays), in turns
+   eager, graph, graph, eager: map, poses and raw count bitwise between
+   every turn, the same launches counted in each (K4 twice a chunk, K3
+   once); each turn's ``init_s`` and ``init_capture_s``; an eager init
+   under the sync debug mode "error"; one eager chunk's launches and host
+   syncs and one replayed chunk's device time under the profiler.
+
+K4 (``ops.pose_lm``, ``csrc/pose_lm.cu``, the fused pose LM) is held
+against its plain version (bitwise, and bitwise run to run; the count of
+problems outside 1e-5 printed) at every
+(P, B, sided) of KERNEL_SHAPES and at P = 1 with 181 and 300 beams and on
+all-masked problems (phase 4b, after K3), at the sweep's shapes in phase
+3, the per-frame shapes in phase 10 and the fleets' in phases 18 (a) and
+20 (a); phases 4-5 count it (init_rounds a chunk, two red-black pairs a
+sweep) and phase 23 counts it 4 times a sweep; its rows (one a shape) are
+in phase 12's table.
+
 ``--time-kernels ROOT K1NACTS K2NACTS`` prints phase 12's table for the
 package under ROOT (what each of those turns runs); ``--trace-sweep``
 runs phase 22 (b).
 
-Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20-23) counts the
+Every run of a main path (phases 4, 5, 8, 9, 11, 13-16, 18, 20-24) counts the
 kernel launches with the counters set to 0 just before it and read just
 after; the kernels' JSON line sums them.  A ``wall_seconds`` line gives
 each phase's seconds (standard error has each as it ends).  Then the
@@ -390,6 +411,34 @@ def kernel_bound_us(kind, T, B, K, nact, W=1):
                                    else "bytes")
 
 
+# the flops of one residual row of an LM cost evaluation: r * r, J^T r
+# (3) and the 6 of J^T J, each a multiply and an add
+K4_FLOPS_PER_ROW = 20
+K4_ITERS = 8            # ICMConfig().pose_gn_iters, every run's
+
+
+def k4_bound_us(prob, x0, w, fold, two_sided, iters=K4_ITERS):
+    """The least time of one K4 call on these inputs, and what bounds it:
+    every field it reads read once (the beams' dist, ang, mask, matched,
+    the problems' poses, controls and odometry, x0, fold, the weights)
+    and the poses written once, over the memory rate; against the
+    (iters + 1) cost evaluations of the rows these problems have (2 a
+    valid beam, 6 kinematic and odometry rows, 6 more two-sided where not
+    folded) at K4_FLOPS_PER_ROW flops a row, over the f32 peak."""
+    P, B = prob.dist.shape
+    forward = 0
+    if two_sided:
+        forward = P - (0 if fold is None else int(fold.sum()))
+    rows = 2 * int(prob.mask.sum()) + 6 * P + 6 * forward
+    ops_us = (iters + 1) * rows * K4_FLOPS_PER_ROW / PEAK_F32_FLOPS * 1e6
+    byts = (P * B * (4 + 4 + 1 + 8) + P * (12 + 8 + 12 + 12 + 12 + 12)
+            + (P * (12 + 8 + 12) if two_sided else 0)
+            + (0 if fold is None else P) + 4 * 6)
+    bytes_us = byts / PEAK_BYTES_PER_S * 1e6
+    return max(ops_us, bytes_us), ("operations" if ops_us >= bytes_us
+                                   else "bytes")
+
+
 def dims(shape):
     """(W, T, B, K) of a shape; a shape of three is one world."""
     return (1, *shape) if len(shape) == 3 else tuple(shape)
@@ -398,9 +447,11 @@ def dims(shape):
 def shape_bound_us(kind, shape, nact):
     """The bound of a call at ``shape``: a fleet's is W times one
     world's (every world reads and writes its own); K3's is its inputs'
-    (``k3_bound_us``)."""
+    (``k3_bound_us``), K4's too (``k4_bound_us``)."""
     if kind == "k3":
         return k3_bound_us(*k3_inputs(shape, nact))
+    if kind == "k4":
+        return k4_bound_us(*k4_inputs(shape), two_sided=shape[2] == "two")
     W, T, B, K = dims(shape)
     return kernel_bound_us(kind, T, B, K, nact, W)
 
@@ -422,7 +473,28 @@ def shape_bound_us(kind, shape, nact):
 # small fleets' K2 (per frame on 181 and 16 beams, per sweep uncapped);
 # then K3, (W, K): the map filter of every sweep capped (K = map_run_cap)
 # and uncapped (K = L) and the init's merge (K = L), for one world and the
-# fleets of 2, 3, 4 and 8 (the small fleets' L = 256)
+# fleets of 2, 3, 4 and 8 (the small fleets' L = 256); then K4, (P, B,
+# "one" | "two"): P = W * 32 one-sided problems a round of the batched
+# init's chunks (C = 32), the W * 916 two-sided problems of a half-pass of
+# a T=1833 sweep (the last frame folded in), one problem a world a frame
+# in the causal init and the sequential sweep, and the small worlds',
+# the 400-frame fleets' and the padded time mesh's (T = 1840) half-passes
+K4_SHAPES = (
+    ((32, 48, "one"), 140), ((916, 48, "two"), 141),
+    ((1, 181, "one"), 142), ((1, 181, "two"), 143), ((1, 48, "one"), 144),
+    ((1832, 48, "two"), 145), ((96, 48, "one"), 146),
+    ((360, 48, "two"), 147), ((357, 48, "two"), 148),
+    ((96, 136, "one"), 149), ((450, 136, "two"), 150),
+    ((447, 136, "two"), 151), ((64, 96, "one"), 152),
+    ((1832, 96, "two"), 153), ((128, 104, "one"), 154),
+    ((3664, 104, "two"), 155), ((256, 152, "one"), 156),
+    ((7328, 152, "two"), 157), ((96, 16, "one"), 158),
+    ((3, 16, "one"), 159), ((180, 16, "two"), 160), ((177, 16, "two"), 161),
+    ((3, 181, "one"), 162), ((3, 181, "two"), 163), ((4, 104, "one"), 164),
+    ((1596, 104, "two"), 165), ((800, 104, "two"), 166),
+    ((796, 104, "two"), 167), ((4, 181, "one"), 168),
+    ((4, 181, "two"), 169), ((920, 48, "two"), 170),
+    ((919, 48, "two"), 171))
 KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k2", (1833, 48, 128), 7), ("k2", (1, 181, 1024), 3),
                  ("k2", (1, 48, 2048), 8), ("k1", (240, 16, 128), 14),
@@ -446,7 +518,8 @@ KERNEL_SHAPES = (("k1", (1833, 48, 128), 1), ("k2", (1833, 48, 1024), 2),
                  ("k3", (2, 128), 122), ("k3", (2, 1024), 123),
                  ("k3", (3, 128), 124), ("k3", (3, 256), 125),
                  ("k3", (4, 128), 126), ("k3", (4, 1024), 127),
-                 ("k3", (8, 128), 128), ("k3", (8, 1024), 129))
+                 ("k3", (8, 128), 128), ("k3", (8, 1024), 129)) + tuple(
+                     ("k4", shape, seed) for shape, seed in K4_SHAPES)
 # tables whose first K columns a kernel searches, as the paths pass them:
 # the non-quirk sweep's K2, and a fleet's K1 (the first map_run_cap
 # columns of each world's L)
@@ -458,7 +531,8 @@ TABLE_WIDTH = {("k2", (1833, 48, 128)): 2048,
                ("k2", (4, 400, 104, 128)): 2048,
                ("k1", (4, 400, 104, 128)): 1024}
 KERNEL_NAME_PART = {"k1": "assoc_sums", "k2": "nearest_landmark",
-                    "k3": "relabel_walk"}
+                    "k3": "relabel_walk", "k4": "pose_lm"}
+KINDS = tuple(KERNEL_NAME_PART)
 
 
 def shape_inputs(kind, shape):
@@ -488,11 +562,16 @@ def kernel_call(kind, shape, nact, plain=False):
     import torch
     from icm_slam_tpu_torch.ops import assoc as k2
     from icm_slam_tpu_torch.ops import assoc_sums as k1
+    from icm_slam_tpu_torch.ops import pose_lm as k4
     from icm_slam_tpu_torch.ops import relabel as k3
     if kind == "k3":
         ins = k3_inputs(shape, nact)
         walk = k3.relabel_walk_plain if plain else k3.relabel_walk
         return lambda: walk(*ins)
+    if kind == "k4":
+        prob, x0, w, fold = k4_inputs(shape)
+        solve = k4.pose_lm_plain if plain else k4.pose_lm
+        return lambda: solve(prob, x0, w, K4_ITERS, shape[2] == "two", fold)
     pts, mp, mask = shape_inputs(kind, shape)
     n = count_tensor(nact, None if len(shape) == 3 else dims(shape)[0])
     if kind == "k1":
@@ -510,10 +589,15 @@ def kernel_variant(kind, shape):
     """The launch variant the wrapper takes at this shape, as a string."""
     from icm_slam_tpu_torch.ops import assoc as k2
     from icm_slam_tpu_torch.ops import assoc_sums as k1
+    from icm_slam_tpu_torch.ops import pose_lm as k4
     from icm_slam_tpu_torch.ops import relabel as k3
     if kind == "k3":
         return " ".join(f"{k}={v}" for k, v in
                         k3.launch_plan(shape[1])._asdict().items())
+    if kind == "k4":
+        return " ".join(f"{k}={v}" for k, v in
+                        k4.launch_plan(shape[0], shape[1],
+                                       shape[2] == "two")._asdict().items())
     mod = k2 if kind == "k2" else k1
     if not hasattr(mod, "launch_plan"):
         return "one launch shape"
@@ -528,13 +612,17 @@ def kernel_variant(kind, shape):
 
 def kernel_row(kind, shape, nact, profiled=True):
     """One row of the kernel table, every time measured here; K3's labels
-    are held bitwise to the plain walk's on the row's inputs."""
+    are held bitwise to the plain walk's on the row's inputs, K4's poses
+    to the plain LM's (``hold_k4``)."""
     import torch
     fn = kernel_call(kind, shape, nact)
+    held = {}
     if kind == "k3":
         check(torch.equal(fn(), kernel_call(kind, shape, nact, True)()),
               f"K3 labels differ from the plain walk at {shape} n={nact}")
-    small = kind == "k3" or dims(shape)[1] == 1
+    if kind == "k4":
+        held = hold_k4(*k4_inputs(shape), shape[2] == "two", f"K4 {shape}")
+    small = kind in ("k3", "k4") or dims(shape)[1] == 1
     own = graph_us(fn, reps=400 if small else 100)
     issue = cuda_ms(fn, reps=400 if small else 100) * 1e3
     bound, by = shape_bound_us(kind, shape, nact)
@@ -542,7 +630,7 @@ def kernel_row(kind, shape, nact, profiled=True):
     row = dict(kernel=kind, shape=list(shape), nact=nact,
                variant=kernel_variant(kind, shape), own_us=own,
                issue_us=issue, bound_us=bound, bound_by=by,
-               share_of_bound=bound / own, plain_ms=plain_ms)
+               share_of_bound=bound / own, plain_ms=plain_ms, **held)
     if profiled:
         row["profiler_us"] = profiler_us(fn, KERNEL_NAME_PART[kind], 50)
     return row
@@ -566,6 +654,9 @@ def kernel_table(nacts_as_run, profiled=True, worlds=True):
     fleet mode has none)."""
     rows = []
     for kind, shape, _ in KERNEL_SHAPES:
+        if kind == "k4" and "k4" in nacts_as_run:
+            rows.append(kernel_row(kind, shape, None, profiled))
+            continue
         if kind not in nacts_as_run or (len(shape) == 4 and not worlds):
             continue
         counts = nacts_as_run.get((kind, shape), nacts_as_run[kind])
@@ -869,6 +960,9 @@ def phase_k2(T=1833, B=48, L=1024):
         for n in (k2.RESIDENT_COLUMNS + 1, W - 3, W):
             err = max(err, hold_k2(pw, mw, n, plan, f"wide table {plan}"))
     hold_k2_ties("phase 3")
+    # K4 where the batched sweeps and the init meet it
+    k4_err, k4_out = hold_k4_shapes(
+        [(32, 48, "one"), (916, 48, "two"), (1832, 48, "two")], "phase 3")
     nact = count_tensor(L)
     ms, plain_ms = time_pair(lambda: k2.nearest_landmark(pts, mp, nact),
                              lambda: k2.nearest_landmark_plain(pts, mp, nact),
@@ -878,8 +972,10 @@ def phase_k2(T=1833, B=48, L=1024):
          variants=[p._asdict() for p in k2_variants(T * B, L)],
          other_shapes=[[T, B, 128], [16, 181, W]], labels="exact",
          ties="exact", dist_max_abs_err=err, issue_interval_ms=ms,
-         plain_ms=plain_ms, plan=k2.launch_plan(T * B, L)._asdict())
-    return dict(max_abs_err=err, plain_ms=plain_ms)
+         plain_ms=plain_ms, plan=k2.launch_plan(T * B, L)._asdict(),
+         k4_shapes=[[32, 48, "one"], [916, 48, "two"], [1832, 48, "two"]],
+         k4_poses_max_abs_err=k4_err, k4_problems_outside_1e5=k4_out)
+    return dict(max_abs_err=err, plain_ms=plain_ms, k4=k4_err)
 
 
 @functools.lru_cache(maxsize=None)
@@ -930,6 +1026,12 @@ def phase_main(g, smi):
     check(main_k1 == cfg.N and n_main["k2"] == 0,
           f"main run launched K1 {main_k1}x, K2 {n_main['k2']}x; want "
           f"{cfg.N} and 0")
+    # K4: init_rounds a chunk of the init, two red-black pairs a sweep
+    chunks = -(-(ds.T - 1) // cfg.init_chunk_len)
+    for what, n, sweeps in (("main", n_main, cfg.N), ("uncapped", n_unc, 3)):
+        want = cfg.init_rounds * chunks + 2 * cfg.pose_passes * sweeps
+        check(n["k4"] == want, f"{what} run launched K4 {n['k4']}x; want "
+                               f"{want}")
     check(n_unc["k1"] == 0 and n_unc["k2"] == 3,
           f"uncapped run launched K1 {n_unc['k1']}x, K2 {n_unc['k2']}x; "
           f"want 0 and 3")
@@ -949,7 +1051,7 @@ def phase_main(g, smi):
     emit(phase="main_path", world="synthetic_world(T=1833, seed=0)",
          config="ICMConfig() N=30 L=1024", obs_cap=resolved.obs_cap,
          map_run_cap=resolved.map_run_cap, k1_launches=main_k1,
-         census=census, census_jax=int(gm["census"]),
+         k4_launches=n_main["k4"], census=census, census_jax=int(gm["census"]),
          ate_rmse_port=ate_port, ate_rmse_jax=ate_jax,
          x_max_abs_diff_vs_jax=float(dx.max()),
          x_frac_frames_within_1e3=float((dx <= 1e-3).mean()),
@@ -960,6 +1062,7 @@ def phase_main(g, smi):
          prepare_s=t["prepare_s"], init_s=t["init_s"],
          refine_per_iter_s=t["refine_per_iter_s"],
          refine_frames_per_s=1833 / t["refine_per_iter_s"],
+         init_capture_s=t["init_capture_s"], capture_s=t["capture_s"],
          note="first run in the process (cold)", card=smi)
     check(all(np.isfinite(a).all() for a in (res_u.x, res_u.map_pos)),
           "non-finite output in the uncapped run")
@@ -1071,8 +1174,9 @@ def phase_profile(smi):
     F = 8 * cfg.init_chunk_len
     head = data._replace(dist=data.dist[:F], mask=data.mask[:F],
                          odom=data.odom[:F], u=data.u[:F])
-    init = launches_and_syncs(
-        lambda: init_sweep_batched(head, seed, x0, cfg, w))
+    # the eager chunks: what a chunk issues from the host; phase 24 times
+    # the graph
+    init = launches_and_syncs(lambda: eager_init(head, seed, x0, cfg, w))
     emit(phase="init_profile", frames=F, **init,
          note=f"init_sweep_batched over frames 0-{F - 1} (8 chunks of "
               f"{cfg.init_chunk_len} frames, R=2)", card=smi)
@@ -1099,7 +1203,7 @@ def phase_profile(smi):
 
 def counted(fn):
     """``fn()`` with the kernels' launch counters set to 0 just before it;
-    returns (result, {"k1": n, "k2": n, "k3": n, "shapes": {(kernel,
+    returns (result, {"k1": n, ..., "k4": n, "shapes": {(kernel,
     shape): n}}) read just after.  A sweep replayed from a CUDA graph
     counts the launches its capture made (``solver.cuda_graph``)."""
     from icm_slam_tpu_torch.ops import _build
@@ -1247,6 +1351,10 @@ def phase_k2_per_frame(B=181, L=1024):
         err = max(err, hold_k2_shape(
             shape, (0, 1, 31, 33, 37, 127, 128, width - 1, width)))
     hold_k2_ties("phase 10")
+    # K4 once a frame: the causal init's one-sided solve and the
+    # sequential sweep's two-sided one, all beams or compacted
+    k4_err, k4_out = hold_k4_shapes(
+        [(1, B, "one"), (1, B, "two"), (1, 48, "one")], "phase 10")
     nact = count_tensor(L)
     ms, plain_ms = time_pair(lambda: k2.nearest_landmark(pts, mp, nact),
                              lambda: k2.nearest_landmark_plain(pts, mp, nact),
@@ -1255,8 +1363,10 @@ def phase_k2_per_frame(B=181, L=1024):
          other_shapes=[[1, 48, 2048], [1, 16, 256]],
          nact=[0, 1, 31, 33, 37, 127, 128, L - 1, L], labels="exact",
          ties="exact", dist_max_abs_err=err, issue_interval_ms=ms,
-         plain_ms=plain_ms, plan=k2.launch_plan(B, L)._asdict())
-    return dict(max_abs_err=err, plain_ms=plain_ms)
+         plain_ms=plain_ms, plan=k2.launch_plan(B, L)._asdict(),
+         k4_shapes=[[1, B, "one"], [1, B, "two"], [1, 48, "one"]],
+         k4_poses_max_abs_err=k4_err, k4_problems_outside_1e5=k4_out)
+    return dict(max_abs_err=err, plain_ms=plain_ms, k4=k4_err)
 
 
 def _files_written(paths, what):
@@ -1278,10 +1388,10 @@ def phase_entry_points(seq_res, smi):
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     ds, _ = world_1833()
-    out, totals = {}, {"k1": 0, "k2": 0, "k3": 0, "shapes": {}}
+    out, totals = {}, {**{k: 0 for k in KINDS}, "shapes": {}}
 
     def tally(n):
-        for k in ("k1", "k2", "k3"):
+        for k in KINDS:
             totals[k] += n[k]
         for key, count in n["shapes"].items():
             totals["shapes"][key] = totals["shapes"].get(key, 0) + count
@@ -1670,7 +1780,8 @@ def phase_loop_closure(gm, smi):
               f"{int(gm['cliloop_census'])}")
         dx = float(np.abs(z["x"] - gm["cliloop_x"]).max())
     out.update(cli_closures=counts[0], cli_closures_jax=want,
-               cli_census=census, cli_x_max_abs_diff_vs_jax=dx,
+               cli_census=census, cli_census_jax=int(gm["cliloop_census"]),
+               cli_x_max_abs_diff_vs_jax=dx,
                cli_s=time.perf_counter() - t0)
     emit(phase="loop_closure", world="drifted_world(T=2000, "
          "n_landmarks=150, world_size=50, seed=3, w_bias=0.001, laps=2)",
@@ -1769,6 +1880,9 @@ def phase_fleet_kernels():
                for shape in ((8, 1833, 48, 128), (8, 1833, 152, 128)))
     err2 = max(hold_k2_worlds(shape, (0, 1, 517, 1024))
                for shape in ((4, 1833, 48, 1024), (4, 1833, 104, 1024)))
+    k4_shapes = [(64, 96, "one"), (1832, 96, "two"), (128, 104, "one"),
+                 (3664, 104, "two"), (256, 152, "one"), (7328, 152, "two")]
+    err4, out4 = hold_k4_shapes(k4_shapes, "phase 18")
     emit(phase="fleet_kernels_vs_plain",
          k1_shapes=[[8, 1833, 48, 128], [8, 1833, 152, 128]],
          k1_nact_per_world=list(k1_nacts),
@@ -1776,8 +1890,10 @@ def phase_fleet_kernels():
          k2_nact_per_world=[0, 1, 517, 1024], labels="exact",
          d2min_and_distances="bitwise (K2 within 1e-5 of plain)",
          sums_run_to_run="bitwise", each_world_vs_alone="bitwise",
-         k1_sums_max_abs_err=err1, k2_dist_max_abs_err=err2)
-    return dict(k1=err1, k2=err2)
+         k1_sums_max_abs_err=err1, k2_dist_max_abs_err=err2,
+         k4_shapes=[list(s) for s in k4_shapes], k4_poses_max_abs_err=err4,
+         k4_problems_outside_1e5=out4)
+    return dict(k1=err1, k2=err2, k4=err4)
 
 
 def fleet_of(golden, prefix, worlds_kw, cfg):
@@ -1799,7 +1915,7 @@ def fleet_of(golden, prefix, worlds_kw, cfg):
 
 def add_counts(total, n):
     """Add one run's counts (``counted``) into ``total``."""
-    for k in ("k1", "k2", "k3"):
+    for k in KINDS:
         total[k] += n[k]
     for key, count in n["shapes"].items():
         total["shapes"][key] = total["shapes"].get(key, 0) + count
@@ -1811,7 +1927,7 @@ def phase_fleet_small(gf):
     launches and, per kernel shape, the live counts they left."""
     import numpy as np
     from icm_slam_tpu_torch.config import ICMConfig
-    out, launches = {}, {"k1": 0, "k2": 0, "k3": 0, "shapes": {}}
+    out, launches = {}, {**{k: 0 for k in KINDS}, "shapes": {}}
     # the worlds of tests/test_torch_fleet.py: census exact, 1e-3
     worlds, res, n = fleet_of(
         gf, "slice3", [dict(T=240, n_landmarks=12, seed=s)
@@ -1973,7 +2089,7 @@ def phase_fleet_profile(curve, one_world, smi):
         head = data._replace(dist=data.dist[:, :F], mask=data.mask[:, :F],
                              odom=data.odom[:, :F], u=data.u[:, :F])
         init = launches_and_syncs(
-            lambda: init_sweep_batched(head, seed, x0, cfg, w))
+            lambda: eager_init(head, seed, x0, cfg, w))
         data = icm.hoist_compaction(data, cfg)
         cur, x, _ = icm._refine_step(data, cur, x, cfg, w)
         sweep = launches_and_syncs(
@@ -2227,6 +2343,11 @@ def phase_modes_kernels():
                                 else (False,)))
     err1 = max(hold_k1_worlds(shape, (0, 7, 100, 128))
                for shape in ((4, 1833, 104, 128), (4, 400, 104, 128)))
+    k4_shapes = [(4, 181, "one"), (4, 181, "two"), (4, 104, "one"),
+                 (1596, 104, "two"), (800, 104, "two"), (796, 104, "two"),
+                 (3, 181, "one"), (3, 181, "two"), (3, 16, "one"),
+                 (96, 16, "one"), (180, 16, "two"), (177, 16, "two")]
+    err4, out4 = hold_k4_shapes(k4_shapes, "phase 20")
     emit(phase="fleet_modes_kernels_vs_plain",
          k2_shapes=[[4, 1, 181, 1024], [4, 1, 104, 2048], [4, 1, 104, 1024],
                     [4, 400, 104, 128], [3, 1, 181, 256], [3, 1, 16, 256],
@@ -2235,8 +2356,9 @@ def phase_modes_kernels():
          k2_keys="d^2; both d^2 and sqrt at T = 1", labels="exact", k2_distances="within 1e-5 of plain",
          k1_sums="within 1e-4, bitwise run to run",
          each_world_vs_alone="bitwise", k2_dist_max_abs_err=err2,
-         k1_sums_max_abs_err=err1)
-    return dict(k1=err1, k2=err2)
+         k1_sums_max_abs_err=err1, k4_shapes=[list(s) for s in k4_shapes],
+         k4_poses_max_abs_err=err4, k4_problems_outside_1e5=out4)
+    return dict(k1=err1, k2=err2, k4=err4)
 
 
 def phase_modes_small(gmo):
@@ -3145,9 +3267,11 @@ def phase_graph(smi, N=30):
                 check(cuda_graph.REPLAYS - replays == N - 1,
                       f"{name}: {cuda_graph.REPLAYS - replays} replays in a "
                       f"graph run of {N} sweeps; want {N - 1}")
-            check(n["k1"] == N and n["k2"] == 0 and n["k3"] == N,
+            k4 = 2 * start[3].pose_passes * N
+            check(n["k1"] == N and n["k2"] == 0 and n["k3"] == N
+                  and n["k4"] == k4,
                   f"{name} {kind}: K1 {n['k1']}x, K2 {n['k2']}x, K3 "
-                  f"{n['k3']}x; want {N}, 0, {N}")
+                  f"{n['k3']}x, K4 {n['k4']}x; want {N}, 0, {N}, {k4}")
             if turns:
                 check(same_sweeps(turns[0], out),
                       f"{name}: the {kind} run differs from the first eager "
@@ -3175,6 +3299,239 @@ def phase_graph(smi, N=30):
               "N - 1 replays; sweep_s includes the capture",
          **runs, card=smi)
     return runs
+
+
+# --- K4: the fused pose LM --------------------------------------------------
+
+def pose_inputs(P, B, two_sided, seed, empty=0):
+    """P random pose problems near a consistent configuration on the card,
+    as the sweeps give them (a fifth of the beams masked, the first
+    ``empty`` problems all masked), start poses and the weights of
+    ``ICMConfig()``: (PoseProblem, x0, w)."""
+    import numpy as np
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.core.energy import PoseProblem, weights
+    rng = np.random.default_rng(seed)
+    xp = np.concatenate([rng.uniform(-20, 20, (P, 2)),
+                         rng.uniform(-np.pi, np.pi, (P, 1))], 1)
+    up = np.stack([rng.uniform(0.5, 1.5, P), rng.uniform(-0.3, 0.3, P)], 1)
+
+    def step(x, u):
+        return x + 0.1 * np.stack([u[:, 0] * np.cos(x[:, 2]),
+                                   u[:, 0] * np.sin(x[:, 2]), u[:, 1]], 1)
+    x = step(xp, up)
+    uc = np.stack([rng.uniform(0.5, 1.5, P), rng.uniform(-0.3, 0.3, P)], 1)
+    xn = step(x, uc)
+    dist = rng.uniform(1.0, 9.0, (P, B))
+    ang = np.sort(rng.uniform(0, np.pi, (P, B)), axis=1)
+    mask = rng.uniform(size=(P, B)) >= 0.2
+    mask[:empty] = False
+    a = ang + x[:, 2:3] - np.pi / 2
+    matched = (x[:, None, :2] + dist[..., None] * np.stack(
+        [np.cos(a), np.sin(a)], -1) + rng.normal(0, 0.05, (P, B, 2)))
+    noise = [rng.normal(0, 0.02, (P, 3)) for _ in range(3)]
+    if not two_sided:
+        xn, uc = np.zeros_like(xn), np.zeros_like(uc)
+    fields = [dist, ang, mask, matched, xp, up, xp + noise[0], x + noise[1],
+              xn, uc, xn + noise[2]]
+    prob = PoseProblem(*[torch.from_numpy(
+        f if f.dtype == bool else f.astype(np.float32)).cuda()
+        for f in fields])
+    x0 = torch.from_numpy((x + rng.normal(0, 0.05, (P, 3))).astype(
+        np.float32)).cuda()
+    return prob, x0, weights(ICMConfig(), "cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def k4_inputs(shape):
+    """The inputs of K4's row at ``shape`` = (P, B, "one" | "two") of
+    KERNEL_SHAPES (any other shape: seed 9): (prob, x0, w, fold), a
+    two-sided call folding every seventh problem (a run folds the last
+    frame of each world)."""
+    import torch
+    P, B, sided = shape
+    seed = {s[:2]: s[2] for s in KERNEL_SHAPES}.get(("k4", shape), 9)
+    prob, x0, w = pose_inputs(P, B, sided == "two", seed)
+    fold = (torch.arange(P, device="cuda") % 7 == 6
+            if sided == "two" else None)
+    return prob, x0, w, fold
+
+
+def hold_k4(prob, x0, w, fold, two_sided, what):
+    """K4 against its plain version on these inputs: bitwise (the kernel
+    adds its rows in the order torch's CUDA sums add the plain version's),
+    and a second launch bitwise the first.  Returns the poses' largest
+    difference and the count of problems outside 1e-5 and 1e-4."""
+    import torch
+    from icm_slam_tpu_torch.ops import pose_lm as k4
+    out = k4.pose_lm(prob, x0, w, K4_ITERS, two_sided, fold)
+    again = k4.pose_lm(prob, x0, w, K4_ITERS, two_sided, fold)
+    plain = k4.pose_lm_plain(prob, x0, w, K4_ITERS, two_sided, fold)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"{what}: two launches differ")
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite poses")
+    err = (out - plain).abs().amax(dim=1)
+    held = dict(max_abs_err=float(err.max()),
+                outside_1e5=int((err > 1e-5).sum()),
+                outside_1e4=int((err > 1e-4).sum()),
+                problems_not_bitwise=int((out != plain).any(dim=1).sum()))
+    check(held["problems_not_bitwise"] == 0,
+          f"{what}: K4 is not bitwise its plain version ({held})")
+    return held
+
+
+def hold_k4_shapes(shapes, what):
+    """``hold_k4`` at each (P, B, "one" | "two") on its row's inputs;
+    returns the largest pose difference and the problems outside 1e-5."""
+    err, outside = 0.0, 0
+    for shape in shapes:
+        held = hold_k4(*k4_inputs(shape), shape[2] == "two",
+                       f"K4 {shape} ({what})")
+        err, outside = (max(err, held["max_abs_err"]),
+                        outside + held["outside_1e5"])
+    return err, outside
+
+
+def phase_k4():
+    """K4 against its plain version at every (P, B, sided) of
+    KERNEL_SHAPES, at P = 1 with B = 181 and 300 and at (64, 300) (torch's
+    sums split over a block's threads there), and on problems with no
+    valid beam; its wrapper's issue interval against the plain version's
+    at the main sweep's shape."""
+    from icm_slam_tpu_torch.ops import pose_lm as k4
+    shapes = [s for kind, s, _ in KERNEL_SHAPES if kind == "k4"]
+    err, outside = hold_k4_shapes(shapes + [(1, 181, "two"),
+                                            (1, 300, "two"),
+                                            (64, 300, "one")], "phase 4b")
+    for two_sided in (False, True):
+        for P, B, empty in ((24, 48, 24), (40, 181, 7)):
+            held = hold_k4(*pose_inputs(P, B, two_sided, P + B, empty),
+                           None, two_sided, f"K4 ({P}, {B}) {empty} empty")
+            err = max(err, held["max_abs_err"])
+            outside += held["outside_1e5"]
+    prob, x0, w, fold = k4_inputs((916, 48, "two"))
+    ms, plain_ms = time_pair(
+        lambda: k4.pose_lm(prob, x0, w, K4_ITERS, True, fold),
+        lambda: k4.pose_lm_plain(prob, x0, w, K4_ITERS, True, fold), reps=20)
+    emit(phase="k4_vs_plain", shapes=[list(s) for s in shapes],
+         also=["(1, 181, two)", "(1, 300, two)", "(64, 300, one)",
+               "all-masked problems"],
+         poses_max_abs_err=err, problems_outside_1e5=outside,
+         rule="bitwise the plain version, bitwise run to run",
+         issue_interval_ms=ms, plain_ms=plain_ms,
+         plan=k4.launch_plan(916, 48, True)._asdict())
+    return dict(max_abs_err=err, plain_ms=plain_ms)
+
+
+def phase_init_graph(smi):
+    """24: the batched init of the main world and of the fleet of eight
+    (phase 18's worlds) eagerly and through the graph (the first chunk
+    eager, a capture, nc - 1 replays), in turns eager, graph, graph,
+    eager: map, poses and raw count bitwise between every turn, nc - 1
+    replays a graph turn, the same launches counted in every turn (K4
+    twice a chunk); each turn's init_s (the init alone, from a
+    synchronized card to a synchronized card) and init_capture_s; an
+    eager init under the sync debug mode "error"; the launches and host
+    syncs of one eager chunk and the device time of one replayed chunk
+    under the profiler."""
+    import torch
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.solver import cuda_graph, icm
+    from icm_slam_tpu_torch.solver.cuda_graph import CapturedStep
+    from icm_slam_tpu_torch.solver.sweeps import (BatchedInit,
+                                                  init_sweep_batched)
+    ds, _ = world_1833()
+    cfg = ICMConfig()
+    data = icm.prepare(ds, cfg, "cuda")
+    main_cfg = icm.resolve_config(cfg, data)
+    x0 = torch.as_tensor(ds.x0, device="cuda").to(data.dist.dtype)
+    starts = {"main": (data, icm.seed_map(data, x0, main_cfg), x0, main_cfg,
+                       weights(main_cfg, "cuda")),
+              "fleet8": icm.prepare_fleet([d for d, _ in fleet_worlds()[:8]],
+                                          cfg, "cuda")}
+    runs = {}
+    for name, (d, seed, x, c, w) in starts.items():
+        turns, times, counts = [], [], []
+        for kind in ("eager", "graph", "graph", "eager"):
+            timings = {}
+            replays = cuda_graph.REPLAYS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n = counted(
+                (lambda: init_sweep_batched(d, seed, x, c, w, timings))
+                if kind == "graph" else (lambda: eager_init(d, seed, x, c, w)))
+            timings.setdefault("init_capture_s", 0.0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            nc = -(-(d.dist.shape[-2] - 1) // c.init_chunk_len)
+            want = nc - 1 if kind == "graph" else 0
+            check(cuda_graph.REPLAYS - replays == want,
+                  f"init {name} {kind}: {cuda_graph.REPLAYS - replays} "
+                  f"replays; want {want}")
+            check(n["k4"] == c.init_rounds * nc and n["k3"] == 1,
+                  f"init {name} {kind}: K4 {n['k4']}x, K3 {n['k3']}x; want "
+                  f"{c.init_rounds * nc} and 1")
+            if turns:
+                (s0, x0_, n0), (s1, x1, n1) = turns[0], out
+                check(all(torch.equal(a, b) for a, b in zip(s0, s1))
+                      and torch.equal(x0_, x1) and torch.equal(n0, n1),
+                      f"init {name}: the {kind} turn differs from the first "
+                      f"eager turn")
+                check(n == counts[0], f"init {name}: the {kind} turn "
+                                      f"counted other launches")
+            turns.append(out)
+            counts.append(n)
+            times.append(dict(kind=kind, init_s=secs,
+                              init_capture_s=timings["init_capture_s"]))
+        no_sync(lambda: eager_init(d, seed, x, c, w),
+                f"the eager init ({name})")
+        one = x.dim() == 1
+        run = BatchedInit(_fleet_of(d, one), _fleet_of(seed, one),
+                          x[None] if one else x, c, w)
+        state = run.step(*run.start)
+        eager_chunk = launches_and_syncs(lambda: run.step(*state))
+        graph = CapturedStep(run.step, *state)
+        graph.replay()
+        replayed = launches_and_syncs(graph.replay)
+        eager = [t["init_s"] for t in times if t["kind"] == "eager"]
+        graphed = [t["init_s"] for t in times if t["kind"] == "graph"]
+        runs[name] = dict(
+            W=1 if one else x.shape[0], chunks=nc,
+            replays_a_graph_turn=nc - 1, turns=times, eager_init_s=eager,
+            graph_init_s=graphed, graph_over_eager=sum(graphed) / sum(eager),
+            vs_eager="bitwise", k4_launches=counts[0]["k4"],
+            eager_init_host_syncs=0,
+            eager_chunk={k: v for k, v in eager_chunk.items()
+                         if k != "top_kernels_ms_count"},
+            replayed_chunk={k: v for k, v in replayed.items()
+                            if k != "top_kernels_ms_count"})
+    emit(phase="init_graph", order="eager, graph, graph, eager",
+         note="init_s: init_sweep_batched alone (its merge included), "
+              "init_capture_s inside it", **runs, card=smi)
+    return runs
+
+
+def _fleet_of(nt, one):
+    """A SweepData or MapState of ``one`` world with the world axis; a
+    fleet's as it is."""
+    return type(nt)(*(a[None] for a in nt)) if one else nt
+
+
+def eager_init(data, seed, x0, cfg, w):
+    """The batched init with every chunk run eagerly: ``BatchedInit``'s
+    steps one by one, as ``init_sweep_batched`` runs them off the card
+    (x0 (3,): one world)."""
+    from icm_slam_tpu_torch.solver.sweeps import BatchedInit, world
+    one = x0.dim() == 1
+    run = BatchedInit(_fleet_of(data, one), _fleet_of(seed, one),
+                      x0[None] if one else x0, cfg, w)
+    state = run.start
+    for _ in range(run.nc):
+        state = run.step(*state)
+    st, x, n = run.finish(state[0])
+    return (world(st), x[0], n[0]) if one else (st, x, n)
 
 
 PARENT_ROOT = os.path.join(HERE, "build", "parent")
@@ -3294,7 +3651,78 @@ LAUNCHED_BY = {
     ("k3", (8, 128)): ("fleet_w8", "the fleet curve's W=8 run, N=30 "
                                    "(phase 18)"),
     ("k3", (8, 1024)): ("fleet_w8", "the fleet curve's W=8 run's init "
-                                    "merge (phase 18)")}
+                                    "merge (phase 18)"),
+    ("k4", (32, 48, "one")): ("main", "the default run's init, 2 a chunk "
+                                      "(phase 4)"),
+    ("k4", (916, 48, "two")): ("main", "the default run's half-passes, 4 a "
+                                       "sweep, N=30 (phase 4)"),
+    ("k4", (1, 181, "one")): ("sequential", "the sequential run's causal "
+                                            "init and last frames (phase 8)"),
+    ("k4", (1, 181, "two")): ("sequential", "the sequential sweep's frames, "
+                                            "N=1 (phase 8)"),
+    ("k4", (1, 48, "one")): ("nonquirk", "the non-quirk run's causal init "
+                                         "(phase 9)"),
+    ("k4", (1832, 48, "two")): ("nonquirk", "the non-quirk run's Jacobi "
+                                            "passes, N=3 (phase 9)"),
+    ("k4", (96, 48, "one")): ("fleet_small", "the small capped fleet's "
+                                             "init (phase 18)"),
+    ("k4", (360, 48, "two")): ("fleet_small", "the small capped fleet's odd "
+                                              "frames, N=3 (phase 18)"),
+    ("k4", (357, 48, "two")): ("fleet_small", "the small capped fleet's "
+                                              "even frames (phase 18)"),
+    ("k4", (96, 136, "one")): ("fleet_small", "the small uncapped fleet's "
+                                              "init (phase 18)"),
+    ("k4", (450, 136, "two")): ("fleet_small", "the small uncapped fleet's "
+                                               "odd frames, N=4 (phase 18)"),
+    ("k4", (447, 136, "two")): ("fleet_small", "the small uncapped fleet's "
+                                               "even frames (phase 18)"),
+    ("k4", (64, 96, "one")): ("fleet_w2", "the W=2 curve run's init "
+                                          "(phase 18)"),
+    ("k4", (1832, 96, "two")): ("fleet_w2", "the W=2 curve run, N=30 "
+                                            "(phase 18)"),
+    ("k4", (128, 104, "one")): ("fleet_w4", "the W=4 curve run's init "
+                                            "(phase 18)"),
+    ("k4", (3664, 104, "two")): ("fleet_w4", "the W=4 curve run, N=30 "
+                                             "(phase 18)"),
+    ("k4", (256, 152, "one")): ("fleet_w8", "the W=8 curve run's init "
+                                            "(phase 18)"),
+    ("k4", (7328, 152, "two")): ("fleet_w8", "the W=8 curve run, N=30 "
+                                             "(phase 18)"),
+    ("k4", (96, 16, "one")): ("modes_small_ba", "the small ba fleet's init "
+                                                "(phase 20)"),
+    ("k4", (3, 16, "one")): ("modes_small_nq", "the small non-quirk fleet's "
+                                               "causal init (phase 20)"),
+    ("k4", (180, 16, "two")): ("modes_small_nq", "the small non-quirk "
+                                                 "fleet's odd frames, N=2 "
+                                                 "(phase 20)"),
+    ("k4", (177, 16, "two")): ("modes_small_nq", "the small non-quirk "
+                                                 "fleet's even frames "
+                                                 "(phase 20)"),
+    ("k4", (3, 181, "one")): ("modes_small_seq", "the small sequential "
+                                                 "fleet's causal init "
+                                                 "(phase 20)"),
+    ("k4", (3, 181, "two")): ("modes_small_seq", "the small sequential "
+                                                 "fleet's sweeps, N=2 "
+                                                 "(phase 20)"),
+    ("k4", (4, 104, "one")): ("modes_nq", "the W=4 non-quirk fleet's causal "
+                                          "init, 400 frames (phase 20)"),
+    ("k4", (1596, 104, "two")): ("modes_nq", "the W=4 non-quirk fleet's "
+                                             "Jacobi passes, N=3 (phase 20)"),
+    ("k4", (800, 104, "two")): ("modes_iseq", "the W=4 init_mode="
+                                              "'sequential' fleet's odd "
+                                              "frames, N=3 (phase 20)"),
+    ("k4", (796, 104, "two")): ("modes_iseq", "the W=4 init_mode="
+                                              "'sequential' fleet's even "
+                                              "frames (phase 20)"),
+    ("k4", (4, 181, "one")): ("modes_seq", "the W=4 sequential fleet's "
+                                           "causal init (phase 20)"),
+    ("k4", (4, 181, "two")): ("modes_seq", "the W=4 sequential fleet's "
+                                           "sweep, N=1 (phase 20)"),
+    ("k4", (920, 48, "two")): ("parallel_time", "the 3 time-sharded sweeps' "
+                                                "odd frames, T padded to "
+                                                "1840 (phase 21)"),
+    ("k4", (919, 48, "two")): ("parallel_time", "the 3 time-sharded sweeps' "
+                                                "even frames (phase 21)")}
 
 
 def check_shapes_covered(launches):
@@ -3303,11 +3731,13 @@ def check_shapes_covered(launches):
     """
     table = {s[:2] for s in KERNEL_SHAPES}
     met = {key for n in launches.values() for key in n["shapes"]}
-    check(met <= table, f"shapes launched on a path without a row in "
-                        f"KERNEL_SHAPES: {sorted(met - table)}")
-    for key, (run, _) in LAUNCHED_BY.items():
-        check(launches[run]["shapes"].get(key, 0) > 0,
-              f"the {run} run never launched {key}")
+    missing = [f"the {run} run never launched {key}"
+               for key, (run, _) in LAUNCHED_BY.items()
+               if launches[run]["shapes"].get(key, 0) == 0]
+    if not met <= table:
+        missing.insert(0, f"shapes launched on a path without a row in "
+                          f"KERNEL_SHAPES: {sorted(met - table, key=str)}")
+    check(not missing, "; ".join(missing))
 
 
 def kernels_line(launches, checks, rows):
@@ -3316,7 +3746,7 @@ def kernels_line(launches, checks, rows):
     def entry(name, source, replaces, kind, shape):
         main_row = next(r for r in rows if r["kernel"] == kind
                         and r["shape"] == list(shape)
-                        and r["nact"] == shape[-1])
+                        and r["nact"] in (shape[-1], None))
         shapes = []
         for r in rows:
             if r["kernel"] != kind:
@@ -3347,7 +3777,10 @@ def kernels_line(launches, checks, rows):
               "icm_slam_tpu/ops/assoc_pallas.py:76", "k2",
               (1833, 48, 1024)),
         entry("relabel_walk", "icm_slam_tpu_torch/csrc/relabel_walk.cu",
-              "icm_slam_tpu/mapping/landmark_map.py:219", "k3", (1, 128))]
+              "icm_slam_tpu/mapping/landmark_map.py:219", "k3", (1, 128)),
+        entry("pose_lm", "icm_slam_tpu_torch/csrc/pose_lm.cu",
+              "icm_slam_tpu/solver/gauss_newton.py:40", "k4",
+              (916, 48, "two"))]
 
 
 def main():
@@ -3398,6 +3831,7 @@ def main():
     k1 = timed("k1", phase_k1)
     k2 = timed("k2", phase_k2)
     k3 = timed("k3", phase_k3)
+    k4 = timed("k4", phase_k4)
     g = np.load(GOLDEN)
     launches, nacts = timed("main_uncapped", phase_main, g, smi)
     timed("small", phase_small, g)
@@ -3406,6 +3840,7 @@ def main():
         nacts[kind] += counts
     # K3's rows: n = K and the fewest live rows a filter met
     nacts["k3"] = [min(nacts["k1"])]
+    nacts["k4"] = []                # K4's rows: one a shape, no live count
     ge = np.load(GOLDEN_ENGINES)
     n8, seq_res = timed("sequential", phase_sequential, ge, smi)
     nacts["k2"].append(seq_res.map_pos.shape[0])
@@ -3461,6 +3896,7 @@ def main():
     emit(phase="parallel_wall_seconds", seconds=time.perf_counter() - t21)
     launches["live_plot"] = timed("utils", phase_utils, smi)
     timed("graph", phase_graph, smi)
+    timed("init_graph", phase_init_graph, smi)
     check_shapes_covered(launches)
     emit(phase="launches_by_shape", **{
         run: {f"{kind} {list(shape)}": c
@@ -3470,13 +3906,18 @@ def main():
     emit(phase="wall_seconds", **walls,
          since_build=time.perf_counter() - t0)
     launches["all"] = {k: sum(n[k] for n in launches.values())
-                       for k in ("k1", "k2", "k3")}
+                       for k in KINDS}
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_frame["max_abs_err"],
                             fk["k2"], fmk["k2"])
     k1["max_abs_err"] = max(k1["max_abs_err"], fk["k1"], fmk["k1"], err21)
+    k4["max_abs_err"] = max(k4["max_abs_err"], k2["k4"], k2_frame["k4"],
+                            fk["k4"], fmk["k4"],
+                            max(r["max_abs_err"] for r in rows
+                                if r["kernel"] == "k4"))
 
     print(json.dumps({"kernels": kernels_line(
-        launches, {"k1": k1, "k2": k2, "k3": k3}, rows)}), flush=True)
+        launches, {"k1": k1, "k2": k2, "k3": k3, "k4": k4}, rows)}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -43,6 +43,11 @@ _SIGNATURES = {
                              _I, _P, _P, _P),
     # nn, close, n, W, K, threads, shmem, lab, stream
     "icm_relabel_walk": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # fields (13 pointers), strides (13 long longs), sqrt_r, sqrt_q,
+    # sqrt_odom, P, B, two_sided, iters, deltat, lam0, lam_down, lam_up,
+    # f_vec, f_v, g_v, h_v, shmem, x_out, stream
+    "icm_pose_lm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I,
+                    _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,9 @@ filter.  The per-sweep witnesses and map changes stay on the device
 during a segment of sweeps and are checked at its end, before any
 observer sees the segment's state, as the fused JAX loop does.  On the
 card the batched sweeps after the first are replays of one captured CUDA
-graph (``refine_sweeps``), the counterpart of that fused loop.
+graph (``refine_sweeps``), the counterpart of that fused loop, and so are
+the batched init's chunks after the first (``init_sweep_batched``), the
+counterpart of JAX's compiled init.
 
 ``run_batched`` is fleet mode: W same-shape worlds through the engines at
 once, on a leading world axis (the JAX package's ``vmap``), so that W
@@ -34,7 +36,7 @@ from icm_slam_tpu_torch.frontend.scan_filter import (filter_scans,
 from icm_slam_tpu_torch.mapping.landmark_map import (MapState, empty_map,
                                                      filter_map,
                                                      seed_from_clusters)
-from icm_slam_tpu_torch.solver.cuda_graph import CapturedSweep
+from icm_slam_tpu_torch.solver.cuda_graph import CapturedStep
 from icm_slam_tpu_torch.solver.sweeps import (SweepData, auto_obs_cap,
                                               compact_data, init_sweep,
                                               init_sweep_batched,
@@ -212,11 +214,16 @@ def _init_merge_cap(config: ICMConfig) -> int:
     return resolve_init_merge_cap(config) if use_batched_init(config) else 0
 
 
-def _init(data: SweepData, seed: MapState, x0, config: ICMConfig, w):
+def _init(data: SweepData, seed: MapState, x0, config: ICMConfig, w,
+          timings=None):
     """Iteration 0. Returns (map_state, poses (T, 3), raw_nact), or a
-    fleet's (W, T, 3) poses and (W,) counts."""
+    fleet's (W, T, 3) poses and (W,) counts.  ``timings`` gets
+    ``init_capture_s``, the batched init's CUDA-graph capture (0 without
+    one)."""
     if use_batched_init(config):
-        return init_sweep_batched(data, seed, x0, config, w)
+        return init_sweep_batched(data, seed, x0, config, w, timings)
+    if timings is not None:
+        timings["init_capture_s"] = 0.0
     return init_sweep(data, seed, x0, config, w)
 
 
@@ -310,11 +317,11 @@ def refine_sweeps(data: SweepData, cur_map: MapState, x, config: ICMConfig,
             continue
         if graph is None:
             t0 = time.perf_counter()
-            graph = CapturedSweep(sweep, cur_map, x)
+            graph = CapturedStep(sweep, cur_map, x)
             timings["capture_s"] = time.perf_counter() - t0
         graph.replay()
         wit, chg = graph.outs
-        yield (graph.map, graph.x, wit.clone(),
+        yield (*graph.state, wit.clone(),
                None if chg is None else chg.clone())
 
 
@@ -412,7 +419,7 @@ def run(dataset: Dataset, config: ICMConfig, device,
     timings["prepare_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    state, x, raw_nact = _init(data, seed, x0, config, w)
+    state, x, raw_nact = _init(data, seed, x0, config, w, timings)
     cur_map = filter_map(state, config.cota, config.dist_thr,
                          live_cap=config.map_run_cap)
     _sync(device)
@@ -570,7 +577,7 @@ def run_batched(datasets, config: ICMConfig, device,
     timings["prepare_s"] = time.perf_counter() - t0
 
     t_pipe = t0 = time.perf_counter()
-    state, x, raw_nact = _init(data, seed, x0, config, w)
+    state, x, raw_nact = _init(data, seed, x0, config, w, timings)
     init_wit = torch.stack([raw_nact.to(torch.int32),
                             kept_count(state, config.cota)], dim=-1)
     cur_map = filter_map(state, config.cota, config.dist_thr,

@@ -10,8 +10,9 @@ Port of ``icm_slam_tpu.solver.sweeps``:
   frame by frame against the frozen previous map.
 * ``init_sweep_batched`` — ICM iteration 0 as a chunked-Picard sweep
   (C frames per chunk, R rounds).  The JAX ``lax.scan`` over chunks is a
-  Python loop with no host syncs; the segmented SE(2) ``associative_scan``
-  is a log-step (Hillis-Steele) scan in plain ops.
+  chunk step over fixed buffers (``BatchedInit``) with no host sync,
+  replayed from one CUDA graph on the card; the segmented SE(2)
+  ``associative_scan`` is a log-step (Hillis-Steele) scan in plain ops.
 * ``refine_sweep_batched`` — one sweep: all T associations against the
   frozen map in one pass (``batched_associate``), running means by
   cumulative sums over frames, then red-black half-passes (or Jacobi
@@ -33,27 +34,28 @@ The association runs through the port's CUDA kernels on a GPU: the fused
 association + per-frame sums (``ops.assoc_sums``) on the capped quirk
 branch, the nearest-landmark search (``ops.assoc``) on the other batched
 branches and, through ``landmark_map.update``, in every frame of the
-sequential engines.  The LM solves use the cofactor 3x3 solve everywhere
-(JAX's sequential engines use an LU solve: the same math, other
-rounding) and the analytic Jacobians of ``core.energy``, which take a
-user's ``EnergyModel`` hooks by forward mode (JAX takes ``jacfwd`` of
-every residual).  Such a model also reaches the kinematic predictions,
-and when it replaces or extends the two-sided cost the last frame's
-one-sided solve runs on its own (``_solve_one_at``), not folded into the
-batch.
+sequential engines.  Every LM pose solve goes through ``_pose_solve``:
+with the default model that is the fused LM kernel (``ops.pose_lm``,
+K4), one launch for a batch of problems; a config's ``EnergyModel``
+takes the plain LM on its cost, whose hooks are torch code.  Both use the
+cofactor 3x3 solve (JAX's sequential engines use an LU solve: the same
+math, other rounding) and the analytic Jacobians of ``core.energy`` (a
+model's hooks by forward mode; JAX takes ``jacfwd`` of every residual).
+Such a model also reaches the kinematic predictions, and when it replaces
+or extends the two-sided cost the last frame's one-sided solve runs on
+its own (``_solve_one_at``), not folded into the batch.
 """
 from __future__ import annotations
 
 import functools
 import math
+import time
 from typing import NamedTuple, Tuple
 
 import torch
 
 from icm_slam_tpu_torch.core.energy import (DEFAULT_MODEL, EnergyModel,
-                                            PoseProblem, one_sided_jacobian,
-                                            one_sided_residuals,
-                                            two_sided_jacobian,
+                                            PoseProblem, two_sided_jacobian,
                                             two_sided_residuals)
 from icm_slam_tpu_torch.core.geometry import beams_to_world
 from icm_slam_tpu_torch.mapping.landmark_map import (MapState, add_rows,
@@ -62,7 +64,8 @@ from icm_slam_tpu_torch.mapping.landmark_map import (MapState, add_rows,
                                                      filter_map, update)
 from icm_slam_tpu_torch.ops.assoc import nearest_landmark
 from icm_slam_tpu_torch.ops.assoc_sums import associate_and_sums
-from icm_slam_tpu_torch.solver.gauss_newton import lm_minimize
+from icm_slam_tpu_torch.ops.pose_lm import pose_lm, pose_lm_plain
+from icm_slam_tpu_torch.solver.cuda_graph import CapturedStep
 
 
 class SweepData(NamedTuple):
@@ -167,15 +170,21 @@ def _model_of(config) -> EnergyModel:
     return DEFAULT_MODEL if config.model is None else config.model
 
 
-def _one_sided(prob, w, config):
-    """(residual fn, Jacobian fn) of the one-sided cost under the config's
-    model: analytic, with forward mode for a hook's own terms."""
-    model = _model_of(config)
-    return (lambda xx: one_sided_residuals(xx, prob, w, model),
-            lambda xx: one_sided_jacobian(xx, prob, w, model))
+def _pose_solve(prob, x0, w, config, two_sided: bool, fold=None,
+                iters=None):
+    """The sweeps' LM pose solve of the problems ``prob`` from ``x0``
+    (P, 3): K4 (``ops.pose_lm``) for the default model, the plain LM on
+    the config's model's cost for a model (K4 cannot run its hooks).
+    ``fold`` (P,) zeroes the forward rows of a two-sided cost."""
+    iters = config.pose_gn_iters if iters is None else iters
+    if config.model is None:
+        return pose_lm(prob, x0, w, iters, two_sided, fold)
+    return pose_lm_plain(prob, x0, w, iters, two_sided, fold, config.model)
 
 
 def _two_sided(prob, w, config):
+    """(residual fn, Jacobian fn) of the two-sided cost under the config's
+    model (``parallel.pipeline``'s LM stage)."""
     model = _model_of(config)
     return (lambda xx: two_sided_residuals(xx, prob, w, model),
             lambda xx: two_sided_jacobian(xx, prob, w, model))
@@ -253,8 +262,7 @@ def _causal_step(state: MapState, xt, frame, config, w):
         matched=flat(matched_p), x_prev=flat(xt), u_prev=flat(u_prev),
         odo_prev=flat(odo_prev), odo_cur=flat(odo_cur), x_next=z3,
         u_cur=z3[:, :2], odo_next=z3)
-    x_opt = lm_minimize(*_one_sided(prob, w, config), flat(xtc),
-                        iters=config.pose_gn_iters).view(xt.shape)
+    x_opt = _pose_solve(prob, flat(xtc), w, config, False).view(xt.shape)
     return new_state, torch.where(empty[..., None], xtc, x_opt)
 
 
@@ -319,7 +327,6 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
     L = old_map.pos.shape[-2]
     dist_thr = config.dist_thr
     quirk = config.replicate_new_obs_quirk
-    iters = config.pose_gn_iters
     dtype, dev = x.dtype, x.device
     ang = flat(data.ang.expand(data.dist.shape[:-2] + data.dist.shape[-1:]))
     model = _model_of(config)
@@ -353,9 +360,8 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
             u_prev=at(data.u, t - 1), odo_prev=at(data.odom, t - 1),
             odo_cur=at(data.odom, t), x_next=flat(x_next),
             u_cur=at(data.u, t), odo_next=at(data.odom, t + 1))
-        x_opt = lm_minimize(*_two_sided(prob, w, config),
-                            flat((x_prev + x_next) / 2.0),
-                            iters=iters).view(x_prev.shape)
+        x_opt = _pose_solve(prob, flat((x_prev + x_next) / 2.0), w, config,
+                            True).view(x_prev.shape)
         x_t = torch.where(empty[..., None], (xt_run + x_next) / 2.0, x_opt)
         state = _where_map(empty, state, new_state)
         x_all[..., t, :] = x_t
@@ -371,10 +377,10 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config,
         matched=flat(matched), x_prev=flat(x_prev), u_prev=at(data.u, t - 1),
         odo_prev=at(data.odom, t - 1), odo_cur=at(data.odom, t), x_next=z3,
         u_cur=z3[:, :2], odo_next=z3)
-    x_one = lm_minimize(
-        *_one_sided(prob, w, config),
-        model.kinematics(flat(x_prev), at(data.u, t - 1), config.deltat),
-        iters=iters).view(x_prev.shape)
+    x_one = _pose_solve(
+        prob, model.kinematics(flat(x_prev), at(data.u, t - 1),
+                               config.deltat), w, config,
+        False).view(x_prev.shape)
     # an empty last frame dead-reckons from the running pose (the
     # reference would index past the end, ICM_ROS.py:144)
     x_t = torch.where(empty[..., None], (xt_run + x_all[..., t, :]) / 2.0,
@@ -456,7 +462,211 @@ def _flat(a, lead: int = 2):
     return a.reshape((-1,) + a.shape[lead:])
 
 
-def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
+class _InitChunk(NamedTuple):
+    """One chunk's frames of every world (W, C, ...), or all nc chunks of
+    them (W, nc, C, ...): frames 1..T-1 padded with empty frames to a
+    multiple of C."""
+    dist: torch.Tensor
+    mask: torch.Tensor
+    ang: torch.Tensor
+    odom: torch.Tensor
+    u_prev: torch.Tensor
+    odom_prev: torch.Tensor
+
+
+class _InitCarry(NamedTuple):
+    """What a chunk of the batched init hands the next: the table's sums
+    and counts (W, L), its allocated-label count (W,), the last pose
+    (W, 3)."""
+    sx: torch.Tensor
+    sy: torch.Tensor
+    cnt: torch.Tensor
+    nact: torch.Tensor
+    x_last: torch.Tensor
+
+
+def _init_chunk(inp: _InitChunk, carry: _InitCarry, config, w):
+    """One chunk of the batched init (``icm_slam_tpu.solver.sweeps.
+    init_sweep_batched``'s scan body): R Picard rounds of association
+    against the carried table and LM solves, then the final map-build.
+    Returns (the next carry, the chunk's poses (W, C, 3)).  No host read."""
+    dist_c, mask_c, ang_c, odom_c, u_prev_c, odom_prev_c = inp
+    base_sx, base_sy, base_cnt, nact, x_last = carry
+    W, C, B = dist_c.shape
+    L = base_sx.shape[-1]
+    dtype, dev = x_last.dtype, x_last.device
+    dist_thr = config.dist_thr
+    model = _model_of(config)
+    R = max(1, int(config.init_rounds))
+    iters = config.init_gn_iters or config.pose_gn_iters
+    z3 = torch.zeros((W, C, 3), dtype=dtype, device=dev)
+    z2 = torch.zeros((W * C, 2), dtype=dtype, device=dev)
+    empty = ~mask_c.any(dim=-1)                               # (W, C)
+
+    def kinematics(xx, uu):
+        """The model's g over the chunk's W * C poses, as (W, C, 3)."""
+        return model.kinematics(_flat(xx), _flat(uu),
+                                config.deltat).view(xx.shape)
+
+    def assoc_pass(pts, pts_prev, lab_prev):
+        """One causal association round + anchored matched targets."""
+        wgt = (lab_prev < L).to(dtype)
+        sx, sy, cnt = _frame_sums(pts_prev[..., 0], pts_prev[..., 1],
+                                  lab_prev, wgt, L)           # (W, C, L)
+        # EXCLUSIVE prefix along each world's frames: the table as each
+        # frame sees it
+        csx = base_sx[:, None] + torch.cumsum(sx, 1) - sx
+        csy = base_sy[:, None] + torch.cumsum(sy, 1) - sy
+        ccn = base_cnt[:, None] + torch.cumsum(cnt, 1) - cnt
+        ex = csx / torch.clamp(ccn, min=1.0)
+        ey = csy / torch.clamp(ccn, min=1.0)
+        live = ccn > 0
+        dx = pts[..., 0:1] - ex[:, :, None, :]                # (W, C, B, L)
+        dy = pts[..., 1:2] - ey[:, :, None, :]
+        d2 = torch.where(live[:, :, None, :], dx * dx + dy * dy,
+                         float("inf"))
+        min2, lab = d2.min(dim=-1)
+        lab = lab.to(torch.int32)
+        far = (min2 > dist_thr * dist_thr) & mask_c
+        lab = torch.where(mask_c, lab, L)
+        # quirk (ICM_SLAM.py:176): one shared new label per far frame,
+        # numbered along the frames of its own world
+        has_far = far.any(dim=-1)                             # (W, C)
+        new_id = nact[:, None] + torch.cumsum(has_far, 1,
+                                              dtype=torch.int32) - 1
+        lab = torch.where(far, torch.clamp(new_id[..., None], max=L), lab)
+        n_new = has_far.sum(dim=1).to(torch.int32)            # (W,)
+
+        wgt_c = (lab < L).to(dtype)
+        osx, osy, ocn = _frame_sums(pts[..., 0], pts[..., 1], lab, wgt_c, L)
+        rx = (csx + osx) / torch.clamp(ccn + ocn, min=1.0)
+        ry = (csy + osy) / torch.clamp(ccn + ocn, min=1.0)
+        lab_cl = torch.clamp(lab, 0, L - 1).long()
+        matched = torch.stack([torch.gather(rx, -1, lab_cl),
+                               torch.gather(ry, -1, lab_cl)], dim=-1)
+        # far beams match their own frame's far-cluster mean
+        ox = torch.gather(osx, -1, lab_cl)
+        oy = torch.gather(osy, -1, lab_cl)
+        oc = torch.clamp(torch.gather(ocn, -1, lab_cl), min=1.0)
+        matched = torch.where(far[..., None],
+                              torch.stack([ox / oc, oy / oc], dim=-1),
+                              matched)
+        fx = base_sx + osx.sum(dim=1)
+        fy = base_sy + osy.sum(dim=1)
+        fc = base_cnt + ocn.sum(dim=1)
+        return lab, n_new, matched, fx, fy, fc
+
+    def solve_round(x_prev_arr, xp, matched):
+        prob = PoseProblem(
+            dist=_flat(dist_c), ang=_flat(ang_c), mask=_flat(mask_c),
+            matched=_flat(matched), x_prev=_flat(x_prev_arr),
+            u_prev=_flat(u_prev_c), odo_prev=_flat(odom_prev_c),
+            odo_cur=_flat(odom_c), x_next=_flat(z3), u_cur=z2,
+            odo_next=_flat(z3))
+        xs = _pose_solve(prob, _flat(xp), w, config, False,
+                         iters=iters).view(W, C, 3)
+        # empty frames take the pure kinematic increment; solved frames
+        # keep their absolute pose
+        xs = torch.where(empty[..., None], xp, xs)
+        return _rechain(xs, x_prev_arr, x_last, keep_abs=~empty)
+
+    # round 0: chain the measured odometry increments from the anchor
+    dth0 = odom_c[..., 2] - odom_prev_c[..., 2]
+    dwx = odom_c[..., 0] - odom_prev_c[..., 0]
+    dwy = odom_c[..., 1] - odom_prev_c[..., 1]
+    c0 = torch.cos(odom_prev_c[..., 2])
+    s0 = torch.sin(odom_prev_c[..., 2])
+    rel0 = torch.stack([c0 * dwx + s0 * dwy, -s0 * dwx + c0 * dwy, dth0],
+                       dim=-1)
+    x = _rechain(rel0, z3, x_last)
+    lab = torch.full((W, C, B), L, dtype=torch.int32, device=dev)
+    pts_prev = torch.zeros((W, C, B, 2), dtype=dtype, device=dev)
+    for _ in range(R):
+        x_prev_arr = torch.cat([x_last[:, None], x[:, :-1]], dim=1)
+        xp = kinematics(x_prev_arr, u_prev_c)
+        pts = beams_to_world(xp, dist_c, ang_c)
+        lab, n_new, matched, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
+        pts_prev = pts
+        x = solve_round(x_prev_arr, xp, matched)
+
+    if config.init_final_assoc:
+        # final map-build from the converged poses (no solves)
+        x_prev_arr = torch.cat([x_last[:, None], x[:, :-1]], dim=1)
+        xp = kinematics(x_prev_arr, u_prev_c)
+        pts = beams_to_world(xp, dist_c, ang_c)
+        lab, n_new, _, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
+    return _InitCarry(fx, fy, fc, nact + n_new, x[:, -1]), x
+
+
+class BatchedInit:
+    """The batched init of a fleet (``data``, ``seed`` with the world
+    axis, ``x0`` (W, 3)) as nc steps of one chunk over fixed buffers (the
+    JAX ``lax.scan`` over chunks): ``step`` reads its frames from the
+    padded (W, nc, C, ...) inputs at a chunk counter on the device and
+    writes its poses into a (W, nc, C, 3) tensor, so every step has the
+    same shapes and no host read, and one step captured in a CUDA graph
+    can be replayed for the others.  ``start`` is the state before the
+    first chunk, ``finish`` the result from the carry after the last."""
+
+    def __init__(self, data: SweepData, seed: MapState, x0, config, w):
+        cap = config.obs_cap or 0
+        if cap and cap < data.dist.shape[-1]:
+            data = compact_data(data, cap)
+        else:
+            data = _per_frame_ang(data)
+        W, T = data.dist.shape[:2]
+        C = max(2, int(config.init_chunk_len))
+        n = T - 1
+        self.nc = nc = -(-n // C)
+        pad = nc * C - n
+
+        def pad_c(a):
+            z = torch.zeros((W, pad) + a.shape[2:], dtype=a.dtype,
+                            device=a.device)
+            return torch.cat([a, z], dim=1).reshape((W, nc, C) + a.shape[2:])
+
+        # frames 1..T-1 of every world, padded with empty frames
+        self.chunks = _InitChunk(
+            pad_c(data.dist[:, 1:]), pad_c(data.mask[:, 1:]),
+            pad_c(data.ang[:, 1:]), pad_c(data.odom[:, 1:]),
+            pad_c(data.u[:, :n]), pad_c(data.odom[:, :n]))
+        self.xs = x0.new_zeros((W, nc, C, 3))
+        self.x0, self.T, self.config, self.w = x0, T, config, w
+        self.start = (
+            _InitCarry(seed.pos[..., 0] * seed.counts,
+                       seed.pos[..., 1] * seed.counts, seed.counts,
+                       seed.nact, x0),
+            torch.zeros((1,), dtype=torch.long, device=x0.device))
+
+    def step(self, carry: _InitCarry, ci):
+        """Chunk ``ci`` ((1,) int64 on the device) from ``carry``; its
+        poses go to ``xs[:, ci]``.  Returns (the next carry, ci + 1)."""
+        inp = _InitChunk(*(a.index_select(1, ci).squeeze(1)
+                           for a in self.chunks))
+        carry, x = _init_chunk(inp, carry, self.config, self.w)
+        self.xs.index_copy_(1, ci, x[:, None])
+        return carry, ci + 1
+
+    def finish(self, carry: _InitCarry):
+        """(merged map_state, poses (W, T, 3), raw_nact (W,)) from the
+        carry after the last chunk: the duplicate merge, once."""
+        W = self.x0.shape[0]
+        x = torch.cat([self.x0[:, None],
+                       self.xs.reshape(W, -1, 3)[:, :self.T - 1]], dim=1)
+        base_sx, base_sy, base_cnt, nact, _ = carry
+        live = base_cnt > 0
+        pos = (torch.stack([base_sx, base_sy], dim=-1)
+               / torch.clamp(base_cnt, min=1.0)[..., None] * live[..., None])
+        # merge duplicate columns without pruning (cota = 0); the raw
+        # allocated-label count is returned as the overflow witness
+        merged = filter_map(MapState(pos, base_cnt, nact), 0.0,
+                            self.config.dist_thr,
+                            live_cap=resolve_init_merge_cap(self.config))
+        return merged, x, nact
+
+
+def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w,
+                       timings=None
                        ) -> Tuple[MapState, torch.Tensor, torch.Tensor]:
     """Causal init (ICM_ROS.py:47-119) as a chunked-Picard sweep.
 
@@ -466,168 +676,40 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
     A fleet (``x0`` (W, 3), ``data`` and ``seed`` with the world axis)
     solves the W * C poses of a chunk in one LM batch, returns (W, T, 3)
     poses and (W,) counts, and merges the W tables in one ``filter_map``.
+
+    The chunks are ``BatchedInit`` steps.  On a CUDA device with the
+    default model the first chunk runs eagerly, one chunk is captured in a
+    CUDA graph (``solver.cuda_graph.CapturedStep``) and replayed for the
+    other nc - 1: the counterpart of JAX's compiled ``_init_jit``, bitwise
+    the eager chunks (the same kernels in the same order).  A capture that
+    fails raises.  Its seconds go to ``timings["init_capture_s"]`` when
+    given (0 without a capture).  Elsewhere the steps run in a Python
+    loop.
     """
     if x0.dim() == 1:
         state, x, nact = init_sweep_batched(
             with_world_axis(data), with_world_axis(seed), x0[None], config,
-            w)
+            w, timings)
         return world(state), x[0], nact[0]
-    cap = config.obs_cap or 0
-    if cap and cap < data.dist.shape[-1]:
-        data = compact_data(data, cap)
-    else:
-        data = _per_frame_ang(data)
-
-    W, T, B = data.dist.shape
-    L = seed.pos.shape[-2]
-    dtype, dev = x0.dtype, x0.device
-    dist_thr = config.dist_thr
-    deltat = config.deltat
-    model = _model_of(config)
-    C = max(2, int(config.init_chunk_len))
-    R = max(1, int(config.init_rounds))
-    iters = config.init_gn_iters or config.pose_gn_iters
-    z3 = torch.zeros((W, C, 3), dtype=dtype, device=dev)
-    z2 = torch.zeros((W * C, 2), dtype=dtype, device=dev)
-
-    def kinematics(xx, uu):
-        """The model's g over the chunk's W * C poses, as (W, C, 3)."""
-        return model.kinematics(_flat(xx), _flat(uu), deltat).view(xx.shape)
-
-    # frames 1..T-1 of every world, padded to a multiple of C with empty
-    # frames: (W, nc, C, ...)
-    n = T - 1
-    nc = -(-n // C)
-    pad = nc * C - n
-
-    def pad_c(a):
-        z = torch.zeros((W, pad) + a.shape[2:], dtype=a.dtype,
-                        device=a.device)
-        return torch.cat([a, z], dim=1).reshape((W, nc, C) + a.shape[2:])
-
-    dist = pad_c(data.dist[:, 1:])
-    mask = pad_c(data.mask[:, 1:])
-    ang = pad_c(data.ang[:, 1:])
-    odom = pad_c(data.odom[:, 1:])
-    u_prev = pad_c(data.u[:, :T - 1])
-    odom_prev = pad_c(data.odom[:, :T - 1])
-
-    base_sx = seed.pos[..., 0] * seed.counts                  # (W, L)
-    base_sy = seed.pos[..., 1] * seed.counts
-    base_cnt = seed.counts
-    nact = seed.nact                                          # (W,)
-    x_last = x0
-    chunks = []
-    for ci in range(nc):
-        dist_c, mask_c, ang_c = dist[:, ci], mask[:, ci], ang[:, ci]
-        odom_c, u_prev_c = odom[:, ci], u_prev[:, ci]
-        odom_prev_c = odom_prev[:, ci]
-        empty = ~mask_c.any(dim=-1)                           # (W, C)
-
-        def assoc_pass(pts, pts_prev, lab_prev):
-            """One causal association round + anchored matched targets."""
-            wgt = (lab_prev < L).to(dtype)
-            sx, sy, cnt = _frame_sums(pts_prev[..., 0], pts_prev[..., 1],
-                                      lab_prev, wgt, L)       # (W, C, L)
-            # EXCLUSIVE prefix along each world's frames: the table as
-            # each frame sees it
-            csx = base_sx[:, None] + torch.cumsum(sx, 1) - sx
-            csy = base_sy[:, None] + torch.cumsum(sy, 1) - sy
-            ccn = base_cnt[:, None] + torch.cumsum(cnt, 1) - cnt
-            ex = csx / torch.clamp(ccn, min=1.0)
-            ey = csy / torch.clamp(ccn, min=1.0)
-            live = ccn > 0
-            dx = pts[..., 0:1] - ex[:, :, None, :]            # (W, C, B, L)
-            dy = pts[..., 1:2] - ey[:, :, None, :]
-            d2 = torch.where(live[:, :, None, :], dx * dx + dy * dy,
-                             float("inf"))
-            min2, lab = d2.min(dim=-1)
-            lab = lab.to(torch.int32)
-            far = (min2 > dist_thr * dist_thr) & mask_c
-            lab = torch.where(mask_c, lab, L)
-            # quirk (ICM_SLAM.py:176): one shared new label per far frame,
-            # numbered along the frames of its own world
-            has_far = far.any(dim=-1)                         # (W, C)
-            new_id = nact[:, None] + torch.cumsum(has_far, 1,
-                                                  dtype=torch.int32) - 1
-            lab = torch.where(far, torch.clamp(new_id[..., None], max=L),
-                              lab)
-            n_new = has_far.sum(dim=1).to(torch.int32)        # (W,)
-
-            wgt_c = (lab < L).to(dtype)
-            osx, osy, ocn = _frame_sums(pts[..., 0], pts[..., 1], lab,
-                                        wgt_c, L)
-            rx = (csx + osx) / torch.clamp(ccn + ocn, min=1.0)
-            ry = (csy + osy) / torch.clamp(ccn + ocn, min=1.0)
-            lab_cl = torch.clamp(lab, 0, L - 1).long()
-            matched = torch.stack([torch.gather(rx, -1, lab_cl),
-                                   torch.gather(ry, -1, lab_cl)], dim=-1)
-            # far beams match their own frame's far-cluster mean
-            ox = torch.gather(osx, -1, lab_cl)
-            oy = torch.gather(osy, -1, lab_cl)
-            oc = torch.clamp(torch.gather(ocn, -1, lab_cl), min=1.0)
-            matched = torch.where(far[..., None],
-                                  torch.stack([ox / oc, oy / oc], dim=-1),
-                                  matched)
-            fx = base_sx + osx.sum(dim=1)
-            fy = base_sy + osy.sum(dim=1)
-            fc = base_cnt + ocn.sum(dim=1)
-            return lab, n_new, matched, fx, fy, fc
-
-        def solve_round(x_prev_arr, xp, matched):
-            prob = PoseProblem(
-                dist=_flat(dist_c), ang=_flat(ang_c), mask=_flat(mask_c),
-                matched=_flat(matched), x_prev=_flat(x_prev_arr),
-                u_prev=_flat(u_prev_c), odo_prev=_flat(odom_prev_c),
-                odo_cur=_flat(odom_c), x_next=_flat(z3), u_cur=z2,
-                odo_next=_flat(z3))
-            xs = lm_minimize(*_one_sided(prob, w, config), _flat(xp),
-                             iters=iters).view(W, C, 3)
-            # empty frames take the pure kinematic increment; solved frames
-            # keep their absolute pose
-            xs = torch.where(empty[..., None], xp, xs)
-            return _rechain(xs, x_prev_arr, x_last, keep_abs=~empty)
-
-        # round 0: chain the measured odometry increments from the anchor
-        dth0 = odom_c[..., 2] - odom_prev_c[..., 2]
-        dwx = odom_c[..., 0] - odom_prev_c[..., 0]
-        dwy = odom_c[..., 1] - odom_prev_c[..., 1]
-        c0 = torch.cos(odom_prev_c[..., 2])
-        s0 = torch.sin(odom_prev_c[..., 2])
-        rel0 = torch.stack([c0 * dwx + s0 * dwy, -s0 * dwx + c0 * dwy,
-                            dth0], dim=-1)
-        x = _rechain(rel0, z3, x_last)
-        lab = torch.full((W, C, B), L, dtype=torch.int32, device=dev)
-        pts_prev = torch.zeros((W, C, B, 2), dtype=dtype, device=dev)
-        for _ in range(R):
-            x_prev_arr = torch.cat([x_last[:, None], x[:, :-1]], dim=1)
-            xp = kinematics(x_prev_arr, u_prev_c)
-            pts = beams_to_world(xp, dist_c, ang_c)
-            lab, n_new, matched, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
-            pts_prev = pts
-            x = solve_round(x_prev_arr, xp, matched)
-
-        if config.init_final_assoc:
-            # final map-build from the converged poses (no solves)
-            x_prev_arr = torch.cat([x_last[:, None], x[:, :-1]], dim=1)
-            xp = kinematics(x_prev_arr, u_prev_c)
-            pts = beams_to_world(xp, dist_c, ang_c)
-            lab, n_new, _, fx, fy, fc = assoc_pass(pts, pts_prev, lab)
-
-        base_sx, base_sy, base_cnt = fx, fy, fc
-        nact = nact + n_new
-        x_last = x[:, -1]
-        chunks.append(x)
-
-    x = torch.cat([x0[:, None], torch.cat(chunks, dim=1)[:, :n]], dim=1)
-    live = base_cnt > 0
-    pos = (torch.stack([base_sx, base_sy], dim=-1)
-           / torch.clamp(base_cnt, min=1.0)[..., None] * live[..., None])
-    # merge duplicate columns without pruning (cota = 0); the raw
-    # allocated-label count is returned as the overflow witness
-    merged = filter_map(MapState(pos, base_cnt, nact), 0.0, dist_thr,
-                        live_cap=resolve_init_merge_cap(config))
-    return merged, x, nact
+    run = BatchedInit(data, seed, x0, config, w)
+    graphed = x0.is_cuda and config.model is None
+    captured = None
+    if timings is not None:
+        timings["init_capture_s"] = 0.0
+    state = run.start
+    for k in range(run.nc):
+        if k == 0 or not graphed:
+            state = run.step(*state)
+            continue
+        if captured is None:
+            t0 = time.perf_counter()
+            captured = CapturedStep(run.step, *state)
+            if timings is not None:
+                timings["init_capture_s"] = time.perf_counter() - t0
+        captured.replay()
+    if captured is not None:
+        state = captured.state
+    return run.finish(state[0])
 
 
 # ---------------------------------------------------------------------------
@@ -873,24 +955,15 @@ def _solve_two_at(data: SweepData, x, obs, config, w, ts, last_t=None,
         u_prev=at(nb.u, tm1), odo_prev=at(nb.odom, tm1),
         odo_cur=at(data.odom, ts), x_next=at(nb.x, tp1), u_cur=at(data.u, ts),
         odo_next=at(nb.odom, tp1))
-    resid2, jac2 = _two_sided(prob, w, config)
     x_init = (prob.x_prev + prob.x_next) / 2.0
     if last_t is None:
-        return lm_minimize(resid2, jac2, x_init,
-                           iters=config.pose_gn_iters).view(W, -1, 3)
-    is_last = (gts == last_t).repeat(W)[:, None]
+        return _pose_solve(prob, x_init, w, config, True).view(W, -1, 3)
+    is_last = (gts == last_t).repeat(W)
     x_init = torch.where(
-        is_last, model.kinematics(prob.x_prev, prob.u_prev, config.deltat),
-        x_init)
-
-    def fold(v):
-        """Zero the last frame's 6 forward rows of v (P, m) or (P, m, 3)."""
-        rows = is_last & (torch.arange(v.shape[1], device=v.device) < 6)
-        return torch.where(rows.view(rows.shape + (1,) * (v.dim() - 2)),
-                           0.0, v)
-    return lm_minimize(lambda xx: fold(resid2(xx)),
-                       lambda xx: fold(jac2(xx)),
-                       x_init, iters=config.pose_gn_iters).view(W, -1, 3)
+        is_last[:, None],
+        model.kinematics(prob.x_prev, prob.u_prev, config.deltat), x_init)
+    return _pose_solve(prob, x_init, w, config, True,
+                       fold=is_last).view(W, -1, 3)
 
 
 def _solve_one_at(data: SweepData, x, obs, config, w, t: int,
@@ -916,8 +989,7 @@ def _solve_one_at(data: SweepData, x, obs, config, w, t: int,
         u_cur=z3[:, :2], odo_next=z3)
     x_init = _model_of(config).kinematics(nb.x[:, tm1], nb.u[:, tm1],
                                           config.deltat)
-    return lm_minimize(*_one_sided(prob, w, config), x_init,
-                       iters=config.pose_gn_iters)
+    return _pose_solve(prob, x_init, w, config, False)
 
 
 def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,

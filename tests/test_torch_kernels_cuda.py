@@ -28,7 +28,16 @@ K2 launch.  K3 (the map filter's relabel walk) against its plain walk,
 bitwise; K2's sqrt key against its plain version, and its tie rule; the
 refine sweeps replayed from a CUDA graph bitwise the same sweeps one by
 one, with each kernel counted once a sweep; a capture that fails raises.
+K4 (the fused pose LM) against its plain version at every (P, B, sided,
+fold) a run gives it and at P = 1, B = 181 and all-masked problems:
+bitwise, and bitwise from run to run; the order ``ops.pose_lm.reduce_plan``
+gives K4's sums bitwise torch's own CUDA sums over dim 1; the
+batched init's chunks replayed from a CUDA graph bitwise the eager chunks
+(one world, W = 4, and on a card that is not the current one), and an
+init capture that fails raises.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -601,12 +610,15 @@ def _hold_graph_to_eager(dev):
         cur = new
     replays = cuda_graph.REPLAYS
     n1, n3 = _build.launches("assoc_sums"), _build.launches("relabel_walk")
+    n4 = _build.launches("pose_lm")
     timings = {}
     graph = [(m, xx, wit, chg) for m, xx, wit, chg in icm.refine_sweeps(
         data, cur0, x0, cfg, w, cfg.N, change=True, timings=timings)]
     assert cuda_graph.REPLAYS - replays == cfg.N - 1
     assert _build.launches("assoc_sums") - n1 == cfg.N
     assert _build.launches("relabel_walk") - n3 == cfg.N
+    # two red-black pairs of half-passes a sweep
+    assert _build.launches("pose_lm") - n4 == 4 * cfg.N
     assert timings["capture_s"] > 0
     for (wit, chg), (_, _, gw, gc) in zip(eager, graph):
         assert torch.equal(wit, gw) and torch.equal(chg, gc)
@@ -632,11 +644,267 @@ def test_a_capture_that_fails_raises(dev):
     """A sweep that reads the card from the host cannot be captured: the
     capture raises (nothing falls back to eager sweeps)."""
     from icm_slam_tpu_torch.mapping.landmark_map import empty_map
-    from icm_slam_tpu_torch.solver.cuda_graph import CapturedSweep
+    from icm_slam_tpu_torch.solver.cuda_graph import CapturedStep
 
     def sweep(m, x):
         return m, x + float(x.sum()), x.sum()
     x = torch.ones(4, device=dev)
     sweep(empty_map(4, device=dev), x)
     with pytest.raises(RuntimeError):
-        CapturedSweep(sweep, empty_map(4, device=dev), x)
+        CapturedStep(sweep, empty_map(4, device=dev), x)
+
+
+# --- K4: the fused pose LM ----------------------------------------------
+
+def _pose_problems(P, B, two_sided, seed, dev, empty=0):
+    """P random pose problems near a consistent configuration (a fifth of
+    the beams masked, the first ``empty`` problems all masked), with start
+    poses and the weights: (PoseProblem, x0, w) on ``dev``."""
+    from icm_slam_tpu_torch.core.energy import PoseProblem
+    rng = np.random.default_rng(seed)
+    xp = np.concatenate([rng.uniform(-5, 5, (P, 2)),
+                         rng.uniform(-np.pi, np.pi, (P, 1))], 1)
+    up = np.stack([rng.uniform(0.5, 1.5, P), rng.uniform(-0.3, 0.3, P)], 1)
+
+    def step(x, u):
+        return x + 0.1 * np.stack([u[:, 0] * np.cos(x[:, 2]),
+                                   u[:, 0] * np.sin(x[:, 2]), u[:, 1]], 1)
+    x = step(xp, up)
+    uc = np.stack([rng.uniform(0.5, 1.5, P), rng.uniform(-0.3, 0.3, P)], 1)
+    xn = step(x, uc)
+    dist = rng.uniform(1.0, 9.0, (P, B))
+    ang = np.sort(rng.uniform(0, np.pi, (P, B)), axis=1)
+    mask = rng.uniform(size=(P, B)) >= 0.2
+    mask[:empty] = False
+    a = ang + x[:, 2:3] - np.pi / 2
+    matched = (x[:, None, :2] + dist[..., None] * np.stack(
+        [np.cos(a), np.sin(a)], -1) + rng.normal(0, 0.05, (P, B, 2)))
+    noise = [rng.normal(0, 0.02, (P, 3)) for _ in range(3)]
+    if not two_sided:
+        xn, uc = np.zeros_like(xn), np.zeros_like(uc)
+    fields = [dist, ang, mask, matched, xp, up, xp + noise[0],
+              x + noise[1], xn, uc, xn + noise[2]]
+    prob = PoseProblem(*[torch.from_numpy(
+        f if f.dtype == bool else f.astype(np.float32)).to(dev)
+        for f in fields])
+    x0 = torch.from_numpy((x + rng.normal(0, 0.05, (P, 3))).astype(
+        np.float32)).to(dev)
+    w = (torch.sqrt(torch.tensor([1.0, 2.0, 0.5], device=dev)),
+         torch.sqrt(torch.tensor([1.5, 0.7], device=dev)),
+         torch.sqrt(torch.tensor(0.8, device=dev)), 0.1)
+    return prob, x0, w
+
+
+def _hold_k4(P, B, two_sided, fold, dev, empty=0, seed=0):
+    """K4 bitwise its plain version on the card, and from run to run."""
+    from icm_slam_tpu_torch.ops import pose_lm as k4
+    prob, x0, w = _pose_problems(P, B, two_sided, seed + P + B, dev, empty)
+    fd = (torch.arange(P, device=dev) % 7 == 3) if fold else None
+    n4 = _build.launches("pose_lm")
+    out = k4.pose_lm(prob, x0, w, 8, two_sided, fd)
+    again = k4.pose_lm(prob, x0, w, 8, two_sided, fd)
+    assert _build.launches("pose_lm") - n4 == 2
+    plain = k4.pose_lm_plain(prob, x0, w, 8, two_sided, fd)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "K4 differs from run to run"
+    assert torch.equal(out, plain), (
+        int((out != plain).any(dim=1).sum()),
+        float((out - plain).abs().max()))
+    return out
+
+
+K4_SHAPES = [  # (P, B, two_sided, fold): what the runs give K4
+    (32, 48, False, False), (916, 48, True, True), (916, 48, True, False),
+    (1, 181, False, False), (1, 181, True, False), (1, 48, False, False),
+    (1832, 48, True, True), (64, 96, False, False), (1832, 96, True, True),
+    (128, 104, False, False), (3664, 104, True, True),
+    (256, 152, False, False), (7328, 152, True, True),
+    (32, 16, False, False), (120, 16, True, True), (4, 181, True, False),
+    (4, 104, False, False), (1596, 104, True, True), (920, 48, True, True),
+    (1, 1, False, False), (64, 300, True, True)]
+
+
+@pytest.mark.parametrize("P,B,two_sided,fold", K4_SHAPES)
+def test_k4_matches_plain(dev, P, B, two_sided, fold):
+    _hold_k4(P, B, two_sided, fold, dev)
+
+
+@pytest.mark.parametrize("two_sided", [False, True])
+def test_k4_all_masked_problems(dev, two_sided):
+    """Problems with no valid beam solve the kinematic and odometry rows
+    alone, as the plain version does."""
+    _hold_k4(24, 48, two_sided, two_sided, dev, empty=24)
+    _hold_k4(24, 181, two_sided, False, dev, empty=7)
+
+
+def test_k4_refuses_what_it_does_not_take(dev):
+    from icm_slam_tpu_torch.ops import pose_lm as k4
+    prob, x0, w = _pose_problems(4, 8, True, 1, dev)
+    with pytest.raises(ValueError, match="x_next"):
+        k4.pose_lm(prob._replace(x_next=prob.x_next[:, :2]), x0, w, 8, True)
+    with pytest.raises(ValueError, match="on cpu"):
+        k4.pose_lm(prob._replace(dist=prob.dist.cpu()), x0, w, 8, True)
+    with pytest.raises(ValueError, match="fold"):
+        k4.pose_lm(prob, x0, w, 8, False, torch.zeros(4, dtype=torch.bool,
+                                                       device=dev))
+    bad = k4.launch_plan(4, 8, True)._replace(shmem=64)   # too little
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        k4.launch(prob, x0, w, 8, True, None, bad)
+
+
+def test_k4_reads_strided_rows_where_they_lie(dev):
+    """Fields whose rows are contiguous but lie apart (a frame of a fleet's
+    (W, T, B) data, a shared beam-angle row expanded to every problem)
+    give what their contiguous copies give, bitwise."""
+    from icm_slam_tpu_torch.ops import pose_lm as k4
+    prob, x0, w = _pose_problems(6, 40, True, 3, dev)
+    wide = prob._replace(**{
+        name: torch.cat([a, torch.zeros_like(a)], dim=-1)[
+            ..., :a.shape[-1]] if a.dim() == 2 else a
+        for name, a in prob._asdict().items()
+        if name not in ("matched", "ang")},
+        ang=prob.ang[:1].expand(6, 40))
+    dense = type(prob)(*(a.contiguous() for a in wide))
+    assert not wide.dist.is_contiguous() and wide.ang.stride(0) == 0
+    fold = torch.arange(6, device=dev) % 2 == 0
+    assert torch.equal(k4.pose_lm(wide, x0, w, 8, True, fold),
+                       k4.pose_lm(dense, x0, w, 8, True, fold))
+
+
+def _torch_order_sum(t, vec, V, s0):
+    """``ops.pose_lm.reduce_plan``'s order in NumPy float32: V partials
+    (four interleaved accumulators each; ``vec``: four-float vectors from a
+    row ``s0`` floats past a 16-byte boundary), then a halving tree."""
+    f32, m = np.float32, len(t)
+
+    def part(x):
+        a = [f32(0)] * 4
+        if not vec:
+            for n, k in enumerate(range(x, m, V)):
+                a[n % 4] = f32(a[n % 4] + t[k])
+        else:
+            base, end = 0, m
+            if s0:
+                if s0 <= x < 4:
+                    a[0] = f32(a[0] + t[x - s0])
+                base, end = 4 - s0, m - 4 + s0
+            i = x
+            while i * 4 + 3 < end:
+                for j in range(4):
+                    a[j] = f32(a[j] + t[base + 4 * i + j])
+                i += V
+            if end - end % 4 + x < end:
+                a[0] = f32(a[0] + t[base + end - end % 4 + x])
+        return f32(f32(f32(a[0] + a[1]) + a[2]) + a[3])
+    vals = [part(x) for x in range(V)]
+    while len(vals) > 1:
+        h = len(vals) // 2
+        vals = [f32(vals[i] + vals[i + h]) for i in range(h)]
+    return vals[0]
+
+
+@pytest.mark.parametrize("P,m", [(1, 108), (1, 368), (1, 374), (4, 374),
+                                 (8, 102), (32, 102), (916, 108),
+                                 (3, 128), (64, 130), (2, 30)])
+def test_reduce_plan_is_torchs_sum_order(dev, P, m):
+    """K4 adds its rows in the order ``reduce_plan`` gives, which must be
+    the order torch's CUDA sum over dim 1 adds the plain version's (P, m),
+    (P, m, 3) and (P, m, 3, 3) products: bitwise, on values of mixed
+    magnitude where the order shows."""
+    from icm_slam_tpu_torch.ops.pose_lm import reduce_plan
+    rng = np.random.default_rng(P * 1000 + m)
+    for outs in (1, 3, 9):
+        d = (rng.standard_normal((P, m, outs))
+             * 10.0 ** rng.uniform(-4, 4, (P, m, outs))).astype(np.float32)
+        t = torch.from_numpy(d[..., 0].copy() if outs == 1 else
+                             d.reshape((P, m) + ((3,) if outs == 3
+                                                 else (3, 3))))
+        got = t.to(dev).sum(dim=1).reshape(P, outs).cpu().numpy()
+        vec, V = reduce_plan(P, m, outs)
+        for p in sorted({0, 1, 2, 3, P // 2, P - 1} & set(range(P))):
+            for o in range(outs):
+                want = _torch_order_sum(d[p, :, o], vec, V, p * m % 4)
+                assert want.tobytes() == got[p, o].tobytes(), (outs, p, o)
+
+
+# --- the batched init replayed from a CUDA graph ---------------------------
+
+def _hold_init_graph(dev, W):
+    """``BatchedInit``'s steps on ``dev`` one by one and
+    ``init_sweep_batched`` there (the first chunk eager, a capture, nc - 1
+    replays): map, poses and count bitwise, each kernel counted as
+    often."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver import cuda_graph, icm
+    from icm_slam_tpu_torch.solver.sweeps import (BatchedInit,
+                                                  init_sweep_batched, world)
+    dss = [synthetic_world(T=240, n_landmarks=12, seed=s)
+           for s in (7, 10, 11, 12)[:W]]
+    data, seed, x0, cfg, w = icm.prepare_fleet(dss, ICMConfig(
+        L=256, cota=20.0, N=1), dev)
+    if W == 1:
+        data, seed, x0 = (type(data)(*(a[0] for a in data)),
+                          type(seed)(*(a[0] for a in seed)), x0[0])
+    outs, counts = [], []
+    nc = -(-(240 - 1) // cfg.init_chunk_len)
+    for graph in (False, True):
+        replays = cuda_graph.REPLAYS
+        before = collections.Counter(_build.LAUNCHES)
+        timings = {}
+        if graph:
+            outs.append(init_sweep_batched(data, seed, x0, cfg, w, timings))
+            assert timings["init_capture_s"] > 0
+        else:       # every chunk eagerly, as off the card
+            one = W == 1
+            run = BatchedInit(*(type(a)(*(f[None] for f in a)) if one else a
+                                for a in (data, seed)),
+                              x0[None] if one else x0, cfg, w)
+            state = run.start
+            for _ in range(run.nc):
+                state = run.step(*state)
+            st, x, n = run.finish(state[0])
+            outs.append((world(st), x[0], n[0]) if one else (st, x, n))
+        counts.append(_build.LAUNCHES - before)
+        assert cuda_graph.REPLAYS - replays == (nc - 1 if graph else 0)
+    (s1, x1, n1), (s2, x2, n2) = outs
+    assert torch.equal(x1, x2) and torch.equal(n1, n2)
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+    assert counts[0] == counts[1]
+    assert sum(n for (k, _), n in counts[0].items() if k == "pose_lm") == \
+        cfg.init_rounds * nc
+
+
+@pytest.mark.parametrize("W", [1, 4])
+def test_graph_init_equals_eager_init(dev, W):
+    _hold_init_graph(dev, W)
+
+
+def test_graph_init_on_a_card_that_is_not_current(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    with torch.cuda.device(0):
+        _hold_init_graph(torch.device("cuda:1"), 1)
+
+
+def test_an_init_capture_that_fails_raises(dev, monkeypatch):
+    """A chunk that reads the card from the host cannot be captured: the
+    init raises (nothing falls back to eager chunks)."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver import icm, sweeps
+    ds = synthetic_world(T=120, n_landmarks=10, seed=7)
+    cfg = ICMConfig(L=256, cota=20.0, N=1)
+    data = icm.prepare(ds, cfg, dev)
+    cfg = icm.resolve_config(cfg, data)
+    x0 = torch.as_tensor(ds.x0, device=dev).float()
+    seed = icm.seed_map(data, x0, cfg)
+    chunk = sweeps._init_chunk
+
+    def reads_back(inp, carry, config, w):
+        carry, x = chunk(inp, carry, config, w)
+        return carry, x + float(x.sum()) * 0.0
+    monkeypatch.setattr(sweeps, "_init_chunk", reads_back)
+    with pytest.raises(RuntimeError):
+        sweeps.init_sweep_batched(data, seed, x0, cfg,
+                                  icm.weights(cfg, dev))

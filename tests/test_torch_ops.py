@@ -135,7 +135,8 @@ def test_build_key_and_missing_nvcc(monkeypatch):
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert [p.rsplit("/", 1)[-1] for p in _build._sources()] == \
-        ["assoc_sums.cu", "nearest_landmark.cu", "relabel_walk.cu"]
+        ["assoc_sums.cu", "nearest_landmark.cu", "pose_lm.cu",
+         "relabel_walk.cu"]
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
