@@ -17,6 +17,13 @@ The kernels' wrappers count their launches on the host as they issue them
 (``ops._build.LAUNCHES``), which a replay does not do: the counts the
 capture made are taken back, and each replay adds them again, so a
 replayed step counts as an eager one does.
+
+The recording inside a capture is the span ``icm.graph.record``
+(``utils.profiling.span``) and each replay a span ``icm.graph.replay``,
+the first one's upload of the graph included; the solver opens
+``icm.graph.capture`` around the whole capture (torch's synchronise,
+collection and ``empty_cache`` before the recording, the graph's
+instantiation after it).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import collections
 import torch
 
 from icm_slam_tpu_torch.ops import _build
+from icm_slam_tpu_torch.utils.profiling import span
 
 # graph replays, in all (a replayed sweep or init chunk is one)
 REPLAYS = 0
@@ -77,7 +85,7 @@ class CapturedStep:
         # capture
         with torch.cuda.device(self.device), torch.cuda.graph(
                 self.graph, stream=torch.cuda.Stream(self.device),
-                capture_error_mode="thread_local"):
+                capture_error_mode="thread_local"), span("icm.graph.record"):
             out = step(*self.state)
             n = len(self.state)
             for dst, src in zip(self.state, out[:n]):
@@ -89,7 +97,7 @@ class CapturedStep:
 
     def replay(self) -> None:
         global REPLAYS
-        with torch.cuda.device(self.device):
+        with span("icm.graph.replay"), torch.cuda.device(self.device):
             self.graph.replay()
         _build.LAUNCHES.update(self._added)
         REPLAYS += 1

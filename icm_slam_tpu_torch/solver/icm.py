@@ -17,11 +17,23 @@ counterpart of JAX's compiled init.
 once, on a leading world axis (the JAX package's ``vmap``), so that W
 worlds cost the kernel launches of one; with a fleet mesh its worlds are
 sharded over the ranks of a process group.
+
+Each call's phases are spans (``utils.profiling.span``): ``icm.run`` or
+``icm.run_batched`` around the whole call, and inside it ``icm.prepare``
+(``icm.prepare.scans``, ``icm.prepare.resolve``, ``icm.prepare.seed_map``),
+``icm.init`` (``icm.init.eager``, the init's ``icm.graph.*``,
+``icm.init.merge``, ``icm.filter_map``), ``icm.hoist``, ``icm.refine``
+(``icm.refine.eager``, the sweeps' ``icm.graph.*``), ``icm.check``,
+``icm.sync``, ``icm.result`` and ``icm.gather``; ``run_batched`` holds
+its init, hoist, sweeps and gather in ``icm.pipeline``.  The spans that
+feed ``timings`` are ``icm.prepare`` (``prepare_s``), ``icm.init``
+(``init_s``), ``icm.hoist`` (``hoist_s``), ``icm.refine`` (``refine_s``),
+``icm.pipeline`` (``pipeline_s``) and the two captures'
+``icm.graph.capture`` (``init_capture_s``, ``capture_s``).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -43,6 +55,7 @@ from icm_slam_tpu_torch.solver.sweeps import (SweepData, auto_obs_cap,
                                               refine_sweep_batched,
                                               refine_sweep_sequential,
                                               resolve_init_merge_cap)
+from icm_slam_tpu_torch.utils.profiling import span
 
 
 def first_frame_labels(pts: np.ndarray, dist_thr: float,
@@ -99,29 +112,31 @@ def resolve_config(config: ICMConfig, data) -> ICMConfig:
     dropped when the provable live bound total_obs / cota reaches it, and
     otherwise shrinks to the tightest 128-aligned width above that bound.
     """
-    if config.obs_cap:
-        cap_needed = auto_obs_cap(data.mask)
-        if config.obs_cap < cap_needed:
-            raise ValueError(
-                f"obs_cap={config.obs_cap} is below this dataset's max "
-                f"per-frame valid-beam count ({cap_needed}); beam "
-                f"compaction would silently drop real observations. "
-                f"Use obs_cap=0 (auto) or >= {cap_needed}.")
-    elif config.sweep_mode in ("batched", "windowed_ba", "ba"):
-        config = dataclasses.replace(config, obs_cap=auto_obs_cap(data.mask))
-    if config.map_run_cap and config.map_run_cap_checked:
-        if config.map_run_cap >= config.L:
-            config = dataclasses.replace(config, map_run_cap=0)
-    elif config.map_run_cap:
-        live_bound = float(data.mask.sum()) / max(config.cota, 1.0)
-        if live_bound + 1 >= config.map_run_cap:
-            config = dataclasses.replace(config, map_run_cap=0)
-        else:
-            align = 128
-            tight = max(align, -(-int(live_bound + 2) // align) * align)
-            if tight < config.map_run_cap:
-                config = dataclasses.replace(config, map_run_cap=tight)
-    return config
+    with span("icm.prepare.resolve"):
+        if config.obs_cap:
+            cap_needed = auto_obs_cap(data.mask)
+            if config.obs_cap < cap_needed:
+                raise ValueError(
+                    f"obs_cap={config.obs_cap} is below this dataset's max "
+                    f"per-frame valid-beam count ({cap_needed}); beam "
+                    f"compaction would silently drop real observations. "
+                    f"Use obs_cap=0 (auto) or >= {cap_needed}.")
+        elif config.sweep_mode in ("batched", "windowed_ba", "ba"):
+            config = dataclasses.replace(config,
+                                         obs_cap=auto_obs_cap(data.mask))
+        if config.map_run_cap and config.map_run_cap_checked:
+            if config.map_run_cap >= config.L:
+                config = dataclasses.replace(config, map_run_cap=0)
+        elif config.map_run_cap:
+            live_bound = float(data.mask.sum()) / max(config.cota, 1.0)
+            if live_bound + 1 >= config.map_run_cap:
+                config = dataclasses.replace(config, map_run_cap=0)
+            else:
+                align = 128
+                tight = max(align, -(-int(live_bound + 2) // align) * align)
+                if tight < config.map_run_cap:
+                    config = dataclasses.replace(config, map_run_cap=tight)
+        return config
 
 
 def check_table_overflow(raw_nact, L: int, where: str = "sweep") -> None:
@@ -165,20 +180,23 @@ def check_witness(witness, config: ICMConfig, where: str = "sweep",
 
 def prepare(dataset: Dataset, config: ICMConfig, device) -> SweepData:
     """Preprocess + batch-filter the whole dataset on ``device``."""
-    dtype = getattr(torch, config.dtype)
-    scans = torch.as_tensor(np.asarray(dataset.scans), device=device).to(
-        dtype)
-    ranges = preprocess_ranges(scans, config.rango_laser_max, config.radio)
-    dist, mask = filter_scans(ranges, config.rango_laser_max,
-                              config.dist_thr, dataset.n_beams,
-                              config.beam_step_deg, config.beam0_deg)
-    ang = beam_angles(dataset.n_beams, config.beam_step_deg,
-                      config.beam0_deg, dtype, device=device)
-    return SweepData(
-        dist=dist, mask=mask, ang=ang,
-        odom=torch.as_tensor(np.asarray(dataset.odom), device=device).to(
-            dtype),
-        u=torch.as_tensor(np.asarray(dataset.u), device=device).to(dtype))
+    with span("icm.prepare.scans"):
+        dtype = getattr(torch, config.dtype)
+        scans = torch.as_tensor(np.asarray(dataset.scans),
+                                device=device).to(dtype)
+        ranges = preprocess_ranges(scans, config.rango_laser_max,
+                                   config.radio)
+        dist, mask = filter_scans(ranges, config.rango_laser_max,
+                                  config.dist_thr, dataset.n_beams,
+                                  config.beam_step_deg, config.beam0_deg)
+        ang = beam_angles(dataset.n_beams, config.beam_step_deg,
+                          config.beam0_deg, dtype, device=device)
+        return SweepData(
+            dist=dist, mask=mask, ang=ang,
+            odom=torch.as_tensor(np.asarray(dataset.odom),
+                                 device=device).to(dtype),
+            u=torch.as_tensor(np.asarray(dataset.u), device=device).to(
+                dtype))
 
 
 def seed_map(data: SweepData, x0, config: ICMConfig) -> MapState:
@@ -187,13 +205,14 @@ def seed_map(data: SweepData, x0, config: ICMConfig) -> MapState:
         raise ValueError("seed_map needs raw SweepData (1-D beam angles), "
                          "not the output of hoist_compaction")
     dev, dtype = data.dist.device, data.dist.dtype
-    pts = beams_to_world(x0, data.dist[0], data.ang).cpu().numpy()
-    mask0 = data.mask[0].cpu().numpy()
-    pts_valid = pts[mask0]
-    if pts_valid.shape[0] == 0:
-        return empty_map(config.L, dtype, dev)
-    labels = first_frame_labels(pts_valid, config.dist_thr)
-    return seed_from_clusters(config.L, pts_valid, labels, dtype, dev)
+    with span("icm.prepare.seed_map"):
+        pts = beams_to_world(x0, data.dist[0], data.ang).cpu().numpy()
+        mask0 = data.mask[0].cpu().numpy()
+        pts_valid = pts[mask0]
+        if pts_valid.shape[0] == 0:
+            return empty_map(config.L, dtype, dev)
+        labels = first_frame_labels(pts_valid, config.dist_thr)
+        return seed_from_clusters(config.L, pts_valid, labels, dtype, dev)
 
 
 def use_batched_init(config: ICMConfig) -> bool:
@@ -224,7 +243,8 @@ def _init(data: SweepData, seed: MapState, x0, config: ICMConfig, w,
         return init_sweep_batched(data, seed, x0, config, w, timings)
     if timings is not None:
         timings["init_capture_s"] = 0.0
-    return init_sweep(data, seed, x0, config, w)
+    with span("icm.init.eager"):
+        return init_sweep(data, seed, x0, config, w)
 
 
 def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
@@ -308,17 +328,17 @@ def refine_sweeps(data: SweepData, cur_map: MapState, x, config: ICMConfig,
                                  if change else None)
 
     graphed, graph = uses_graph(config, x.device), None
-    timings = {} if timings is None else timings
-    timings["capture_s"] = 0.0
+    if timings is not None:
+        timings["capture_s"] = 0.0
     for k in range(n_iters):
         if k == 0 or not graphed:
-            cur_map, x, wit, chg = sweep(cur_map, x)
+            with span("icm.refine.eager"):
+                cur_map, x, wit, chg = sweep(cur_map, x)
             yield cur_map, x, wit, chg
             continue
         if graph is None:
-            t0 = time.perf_counter()
-            graph = CapturedStep(sweep, cur_map, x)
-            timings["capture_s"] = time.perf_counter() - t0
+            with span("icm.graph.capture", timings, "capture_s"):
+                graph = CapturedStep(sweep, cur_map, x)
         graph.replay()
         wit, chg = graph.outs
         yield (*graph.state, wit.clone(),
@@ -349,9 +369,10 @@ def refine_loop(data: SweepData, cur_map: MapState, x, config: ICMConfig, w,
             cur_map, x, wit, chg = next(sweeps)
             wits.append(wit)
             chgs.append(chg)
-        for j, wv in enumerate(torch.stack(wits).cpu().numpy()):
-            check_witness(wv, config, f"refinement sweep {k + j}")
-        changes.append(torch.stack(chgs).cpu().numpy())
+        with span("icm.check"):
+            for j, wv in enumerate(torch.stack(wits).cpu().numpy()):
+                check_witness(wv, config, f"refinement sweep {k + j}")
+            changes.append(torch.stack(chgs).cpu().numpy())
         k += seg
         if on_segment is not None:
             on_segment(k - 1, MapState(*(a.clone() for a in cur_map)),
@@ -386,8 +407,10 @@ def map_change(new_map: MapState, old_map: MapState, live_cap: int = 0):
 
 
 def _sync(device: torch.device) -> None:
+    """The barrier that ends a timed phase on the card."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with span("icm.sync"):
+            torch.cuda.synchronize(device)
 
 
 def run(dataset: Dataset, config: ICMConfig, device,
@@ -407,67 +430,68 @@ def run(dataset: Dataset, config: ICMConfig, device,
     device = resolve_device(device)
     n_iters = config.N if n_iters is None else n_iters
     timings = {}
+    with span("icm.run"):
+        with span("icm.prepare", timings, "prepare_s"):
+            data = prepare(dataset, config, device)
+            config = resolve_config(config, data)
+            x0 = torch.as_tensor(np.asarray(dataset.x0), device=device).to(
+                data.dist.dtype)
+            seed = seed_map(data, x0, config)
+            w = weights(config, device)
+            _sync(device)
 
-    t0 = time.perf_counter()
-    data = prepare(dataset, config, device)
-    config = resolve_config(config, data)
-    x0 = torch.as_tensor(np.asarray(dataset.x0), device=device).to(
-        data.dist.dtype)
-    seed = seed_map(data, x0, config)
-    w = weights(config, device)
-    _sync(device)
-    timings["prepare_s"] = time.perf_counter() - t0
+        with span("icm.init", timings, "init_s"):
+            state, x, raw_nact = _init(data, seed, x0, config, w, timings)
+            with span("icm.filter_map"):
+                cur_map = filter_map(state, config.cota, config.dist_thr,
+                                     live_cap=config.map_run_cap)
+            _sync(device)
+        with span("icm.check"):
+            check_witness(torch.stack([raw_nact.to(torch.int32),
+                                       kept_count(state, config.cota)]).cpu(),
+                          config, "init sweep",
+                          init_merge_cap=_init_merge_cap(config))
+        with span("icm.result"):
+            x_init = x.cpu().numpy()
+        if on_init is not None:
+            on_init(x_init)
 
-    t0 = time.perf_counter()
-    state, x, raw_nact = _init(data, seed, x0, config, w, timings)
-    cur_map = filter_map(state, config.cota, config.dist_thr,
-                         live_cap=config.map_run_cap)
-    _sync(device)
-    timings["init_s"] = time.perf_counter() - t0
-    check_witness(torch.stack([raw_nact.to(torch.int32),
-                               kept_count(state, config.cota)]).cpu(),
-                  config, "init sweep",
-                  init_merge_cap=_init_merge_cap(config))
-    x_init = x.cpu().numpy()
-    if on_init is not None:
-        on_init(x_init)
+        with span("icm.hoist", timings, "hoist_s"):
+            data = hoist_compaction(data, config)
+            _sync(device)
 
-    t0 = time.perf_counter()
-    data = hoist_compaction(data, config)
-    _sync(device)
-    timings["hoist_s"] = time.perf_counter() - t0
+        def observe(k, cur_map, x):
+            if callback is not None:
+                callback(k, cur_map, x)
+            if verbose:
+                corr = float(torch.linalg.vector_norm(
+                    x.cpu() - torch.from_numpy(x_init), dim=1).sum())
+                print(f"[icm] iter {k + 1}/{n_iters} "
+                      f"landmarks={int(cur_map.nact)} correction={corr:.4f}",
+                      flush=True)
 
-    def observe(k, cur_map, x):
-        if callback is not None:
-            callback(k, cur_map, x)
         if verbose:
-            corr = float(torch.linalg.vector_norm(
-                x.cpu() - torch.from_numpy(x_init), dim=1).sum())
-            print(f"[icm] iter {k + 1}/{n_iters} "
-                  f"landmarks={int(cur_map.nact)} correction={corr:.4f}",
-                  flush=True)
+            stride = 1
+        elif callback is not None:
+            stride = max(int(callback_stride), 1)
+        else:
+            stride = 0
+        with span("icm.refine", timings, "refine_s"):
+            cur_map, x, changes = refine_loop(
+                data, cur_map, x, config, w, n_iters, stride=stride,
+                on_segment=(observe if (callback is not None or verbose)
+                            else None),
+                timings=timings)
+            _sync(device)
+        timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
 
-    t0 = time.perf_counter()
-    if verbose:
-        stride = 1
-    elif callback is not None:
-        stride = max(int(callback_stride), 1)
-    else:
-        stride = 0
-    cur_map, x, changes = refine_loop(
-        data, cur_map, x, config, w, n_iters, stride=stride,
-        on_segment=observe if (callback is not None or verbose) else None,
-        timings=timings)
-    _sync(device)
-    timings["refine_s"] = time.perf_counter() - t0
-    timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
-
-    nact = int(cur_map.nact)
-    return ICMResult(
-        x_init=x_init, x=x.cpu().numpy(),
-        map_pos=cur_map.pos[:nact].cpu().numpy(),
-        map_counts=cur_map.counts[:nact].cpu().numpy(),
-        changes=changes, timings=timings)
+        with span("icm.result"):
+            nact = int(cur_map.nact)
+            return ICMResult(
+                x_init=x_init, x=x.cpu().numpy(),
+                map_pos=cur_map.pos[:nact].cpu().numpy(),
+                map_counts=cur_map.counts[:nact].cpu().numpy(),
+                changes=changes, timings=timings)
 
 
 # ---------------------------------------------------------------------------
@@ -559,72 +583,78 @@ def run_batched(datasets, config: ICMConfig, device,
     n_iters = config.N if n_iters is None else n_iters
     W = len(datasets)
     timings = {}
+    with span("icm.run_batched"):
+        worlds = None
+        if mesh is not None:
+            from icm_slam_tpu_torch.parallel.mesh import (FLEET_AXIS,
+                                                          check_axis)
+            check_axis(mesh, FLEET_AXIS)
+            if mesh.device_type != device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot run a "
+                                 f"fleet on {device}")
+            per = -(-W // mesh.size())
+            r = mesh.get_local_rank()
+            worlds = [min(i, W - 1) for i in range(r * per, (r + 1) * per)]
+        with span("icm.prepare", timings, "prepare_s"):
+            data, seed, x0, config, w = prepare_fleet(datasets, config,
+                                                      device, worlds)
+            _sync(device)
 
-    worlds = None
-    if mesh is not None:
-        from icm_slam_tpu_torch.parallel.mesh import FLEET_AXIS, check_axis
-        check_axis(mesh, FLEET_AXIS)
-        if mesh.device_type != device.type:
-            raise ValueError(f"a {mesh.device_type} mesh cannot run a fleet "
-                             f"on {device}")
-        per = -(-W // mesh.size())
-        r = mesh.get_local_rank()
-        worlds = [min(i, W - 1) for i in range(r * per, (r + 1) * per)]
-    t0 = time.perf_counter()
-    data, seed, x0, config, w = prepare_fleet(datasets, config, device,
-                                              worlds)
-    _sync(device)
-    timings["prepare_s"] = time.perf_counter() - t0
+        with span("icm.pipeline", timings, "pipeline_s"):
+            with span("icm.init", timings, "init_s"):
+                state, x, raw_nact = _init(data, seed, x0, config, w,
+                                           timings)
+                init_wit = torch.stack([raw_nact.to(torch.int32),
+                                        kept_count(state, config.cota)],
+                                       dim=-1)
+                with span("icm.filter_map"):
+                    cur_map = filter_map(state, config.cota, config.dist_thr,
+                                         live_cap=config.map_run_cap)
+                x_init = x
+                _sync(device)
 
-    t_pipe = t0 = time.perf_counter()
-    state, x, raw_nact = _init(data, seed, x0, config, w, timings)
-    init_wit = torch.stack([raw_nact.to(torch.int32),
-                            kept_count(state, config.cota)], dim=-1)
-    cur_map = filter_map(state, config.cota, config.dist_thr,
-                         live_cap=config.map_run_cap)
-    x_init = x
-    _sync(device)
-    timings["init_s"] = time.perf_counter() - t0
+            with span("icm.hoist", timings, "hoist_s"):
+                data = hoist_compaction(data, config)
+                _sync(device)
 
-    t0 = time.perf_counter()
-    data = hoist_compaction(data, config)
-    _sync(device)
-    timings["hoist_s"] = time.perf_counter() - t0
+            with span("icm.refine", timings, "refine_s"):
+                wits = []
+                for cur_map, x, wit, _ in refine_sweeps(
+                        data, cur_map, x, config, w, n_iters,
+                        timings=timings):
+                    wits.append(wit)
+                _sync(device)
+            timings["refine_per_iter_s"] = (timings["refine_s"]
+                                            / max(n_iters, 1))
 
-    t0 = time.perf_counter()
-    wits = []
-    for cur_map, x, wit, _ in refine_sweeps(data, cur_map, x, config, w,
-                                            n_iters, timings=timings):
-        wits.append(wit)
-    _sync(device)
-    timings["refine_s"] = time.perf_counter() - t0
-    timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
+            wits = (torch.stack(wits, dim=1) if wits
+                    else init_wit.new_zeros((init_wit.shape[0], 0, 2)))
+            out = [x_init, x, cur_map.pos, cur_map.counts, cur_map.nact,
+                   init_wit, wits]
+            if mesh is not None:
+                from icm_slam_tpu_torch.parallel.mesh import gather_blocks
+                with span("icm.gather"):
+                    out = [gather_blocks(mesh, a)[:W] if a.numel() else
+                           a.new_zeros((W,) + tuple(a.shape[1:]))
+                           for a in out]
+                    _sync(device)
+        timings["per_world_s"] = timings["pipeline_s"] / W
 
-    wits = (torch.stack(wits, dim=1) if wits
-            else init_wit.new_zeros((init_wit.shape[0], 0, 2)))
-    out = [x_init, x, cur_map.pos, cur_map.counts, cur_map.nact, init_wit,
-           wits]
-    if mesh is not None:
-        from icm_slam_tpu_torch.parallel.mesh import gather_blocks
-        out = [gather_blocks(mesh, a)[:W] if a.numel() else
-               a.new_zeros((W,) + tuple(a.shape[1:])) for a in out]
-        _sync(device)
-    timings["pipeline_s"] = time.perf_counter() - t_pipe
-    timings["per_world_s"] = timings["pipeline_s"] / W
-
-    x_init, x, pos, counts, nacts, init_wit, wits = (a.cpu().numpy()
-                                                     for a in out)
-    merge_cap = _init_merge_cap(config)
-    results = []
-    for wdx in range(W):
-        check_witness(init_wit[wdx], config, f"init sweep (world {wdx})",
-                      init_merge_cap=merge_cap)
-        for k in range(n_iters):
-            check_witness(wits[wdx, k], config,
-                          f"refinement sweep {k} (world {wdx})")
-        nact = int(nacts[wdx])
-        results.append(ICMResult(
-            x_init=x_init[wdx], x=x[wdx], map_pos=pos[wdx, :nact],
-            map_counts=counts[wdx, :nact], changes=np.zeros((0, 3)),
-            timings=dict(timings)))
-    return results
+        with span("icm.result"):
+            x_init, x, pos, counts, nacts, init_wit, wits = (
+                a.cpu().numpy() for a in out)
+        merge_cap = _init_merge_cap(config)
+        with span("icm.check"):
+            for wdx in range(W):
+                check_witness(init_wit[wdx], config,
+                              f"init sweep (world {wdx})",
+                              init_merge_cap=merge_cap)
+                for k in range(n_iters):
+                    check_witness(wits[wdx, k], config,
+                                  f"refinement sweep {k} (world {wdx})")
+        return [ICMResult(
+            x_init=x_init[wdx], x=x[wdx],
+            map_pos=pos[wdx, :int(nacts[wdx])],
+            map_counts=counts[wdx, :int(nacts[wdx])],
+            changes=np.zeros((0, 3)), timings=dict(timings))
+            for wdx in range(W)]

@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import functools
 import math
-import time
 from typing import NamedTuple, Tuple
 
 import torch
@@ -66,6 +65,7 @@ from icm_slam_tpu_torch.ops.assoc import nearest_landmark
 from icm_slam_tpu_torch.ops.assoc_sums import associate_and_sums
 from icm_slam_tpu_torch.ops.pose_lm import pose_lm, pose_lm_plain
 from icm_slam_tpu_torch.solver.cuda_graph import CapturedStep
+from icm_slam_tpu_torch.utils.profiling import span
 
 
 class SweepData(NamedTuple):
@@ -684,7 +684,8 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w,
     the eager chunks (the same kernels in the same order).  A capture that
     fails raises.  Its seconds go to ``timings["init_capture_s"]`` when
     given (0 without a capture).  Elsewhere the steps run in a Python
-    loop.
+    loop.  The chunks run eagerly are spans ``icm.init.eager``, the merge
+    ``icm.init.merge`` (``utils.profiling.span``).
     """
     if x0.dim() == 1:
         state, x, nact = init_sweep_batched(
@@ -699,17 +700,17 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w,
     state = run.start
     for k in range(run.nc):
         if k == 0 or not graphed:
-            state = run.step(*state)
+            with span("icm.init.eager"):
+                state = run.step(*state)
             continue
         if captured is None:
-            t0 = time.perf_counter()
-            captured = CapturedStep(run.step, *state)
-            if timings is not None:
-                timings["init_capture_s"] = time.perf_counter() - t0
+            with span("icm.graph.capture", timings, "init_capture_s"):
+                captured = CapturedStep(run.step, *state)
         captured.replay()
     if captured is not None:
         state = captured.state
-    return run.finish(state[0])
+    with span("icm.init.merge"):
+        return run.finish(state[0])
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,13 @@
-"""Profiling helpers: torch.profiler traces and phase timers that wait for
-the device.
+"""Profiling helpers: named spans, torch.profiler traces and phase timers
+that wait for the device.
+
+``span`` is the one timing primitive of the port: the solver's phases
+(``solver.icm``, ``solver.sweeps``, ``solver.cuda_graph``) and
+``PhaseTimer`` open it.  Under a running torch profiler it is a
+``record_function`` range, on the clock of the device's kernels, copies
+and sets in the same trace, and its nesting on the host thread is the
+phases' call tree; otherwise it costs one check of the profiler's flag.
+Given a ``timings`` dict it also stores its host seconds there.
 
 Port of ``icm_slam_tpu.utils.profiling``: ``device_trace`` records what
 ``jax.profiler.start_trace`` / ``stop_trace`` record there, the host's
@@ -14,9 +22,39 @@ import time
 from typing import Dict
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 from torch.utils._pytree import tree_leaves
 
-from icm_slam_tpu_torch.solver.icm import resolve_device
+
+class span:
+    """``with span(name, timings, key):`` names the block ``name`` in a
+    running torch profiler's trace (a ``record_function`` range; nothing
+    of the profiler is touched when none runs) and, with ``timings``,
+    stores the block's host seconds in ``timings[key]``.  The block's
+    device work is not waited for: a phase that is to be timed to its
+    end synchronises inside the block."""
+
+    __slots__ = ("name", "timings", "key", "_rf", "_t0")
+
+    def __init__(self, name: str, timings: dict = None, key: str = None):
+        self.name, self.timings, self.key = name, timings, key
+
+    def __enter__(self):
+        self._rf = None
+        if _profiler_enabled():
+            self._rf = record_function(self.name)
+            self._rf.__enter__()
+        if self.timings is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.timings is not None:
+            self.timings[self.key] = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
 
 
 @contextlib.contextmanager
@@ -28,6 +66,8 @@ def device_trace(logdir: str, device="cuda"):
     host alone."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
+
+    from icm_slam_tpu_torch.solver.icm import resolve_device
     activities = [ProfilerActivity.CPU]
     if resolve_device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -56,15 +96,16 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str, block_on=None):
-        """Time the block; with ``block_on``, wait for the device to finish
-        the tensors it holds first.  Its leaves are read when the block
-        ends, so a list or dict that the block fills works."""
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None:
-            _synchronize(block_on)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
+        """Time the block, a ``span`` of ``name``; with ``block_on``, wait
+        for the device to finish the tensors it holds first.  Its leaves
+        are read when the block ends, so a list or dict that the block
+        fills works."""
+        t = {}
+        with span(name, t, name):
+            yield
+            if block_on is not None:
+                _synchronize(block_on)
+        self.totals[name] = self.totals.get(name, 0.0) + t[name]
         self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self) -> Dict[str, dict]:

@@ -1,0 +1,240 @@
+"""The port's spans (``utils.profiling.span``) on the CPU: ``run()`` and
+``run_batched()`` under torch.profiler name their phases as one tree on
+the host thread (``icm.run*`` at the top, ``icm.prepare``'s three
+children, ``icm.init`` and ``icm.refine`` in order, every span closed on
+return); without a profiler no span touches ``record_function`` and the
+``timings`` keep their keys; ``PhaseTimer.phase`` is a span.  On a card,
+the captures and replays of the CUDA graphs are spans too (``cuda``).
+This file imports no JAX, so that the card runs it.
+"""
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from icm_slam_tpu_torch.config import ICMConfig
+from icm_slam_tpu_torch.data.datasets import synthetic_world
+from icm_slam_tpu_torch.solver import icm
+from icm_slam_tpu_torch.utils import profiling
+
+CFG = ICMConfig(N=2, L=256, cota=5.0)
+SEEDS = (7, 10)
+
+# what each entry point reported before its phases were spans
+KEYS = {"run": {"prepare_s", "init_s", "init_capture_s", "hoist_s",
+                "refine_s", "capture_s", "refine_per_iter_s"}}
+KEYS["run_batched"] = KEYS["run"] | {"pipeline_s", "per_world_s"}
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One CPU thread: these small worlds run faster without threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _worlds():
+    return [synthetic_world(T=120, n_landmarks=10, seed=s) for s in SEEDS]
+
+
+def _call(entry, device="cpu"):
+    worlds = _worlds()
+    if entry == "run":
+        return [icm.run(worlds[0], CFG, device)]
+    return icm.run_batched(worlds, CFG, device)
+
+
+class _Node:
+    def __init__(self, name, start, end, parent):
+        self.name, self.start, self.end = name, start, end
+        self.parent, self.children = parent, []
+
+    def names(self):
+        return [c.name for c in self.children]
+
+    def find(self, name):
+        return [c for c in self.children if c.name == name]
+
+    def phases(self):
+        """The children, ``run_batched``'s ``icm.pipeline`` replaced by
+        its own children."""
+        out = []
+        for c in self.children:
+            out.extend(c.children if c.name == "icm.pipeline" else [c])
+        return out
+
+    def phase(self, name):
+        return [c for c in self.phases() if c.name == name]
+
+
+def _tree(prof):
+    """The host's user spans as a forest: each span's parent is the
+    innermost span that holds it."""
+    spans = sorted(((e.start_ns(), -e.end_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.is_user_annotation()
+                    and not str(e.device_type()).endswith("CUDA")))
+    roots, stack = [], []
+    for start, neg_end, name in spans:
+        while stack and stack[-1].end <= start:
+            stack.pop()
+        node = _Node(name, start, -neg_end, stack[-1] if stack else None)
+        (stack[-1].children if stack else roots).append(node)
+        stack.append(node)
+    return roots
+
+
+class _Balance:
+    """``record_function`` counting the ranges it opens and closes."""
+
+    def __init__(self, real):
+        self.real, self.open, self.opened = real, 0, 0
+
+    def __call__(self, name):
+        outer, rf = self, self.real(name)
+
+        class _Range:
+            def __enter__(self):
+                outer.open += 1
+                outer.opened += 1
+                return rf.__enter__()
+
+            def __exit__(self, *exc):
+                outer.open -= 1
+                return rf.__exit__(*exc)
+        return _Range()
+
+
+@pytest.mark.parametrize("entry", ["run", "run_batched"])
+def test_a_call_emits_the_span_tree(entry, monkeypatch):
+    balance = _Balance(profiling.record_function)
+    monkeypatch.setattr(profiling, "record_function", balance)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _call(entry)
+    assert balance.opened > 0 and balance.open == 0      # all closed
+    roots = _tree(prof)
+    assert [r.name for r in roots] == [f"icm.{entry}"]
+    top = roots[0]
+    W = 1 if entry == "run" else len(SEEDS)
+
+    assert top.names().count("icm.pipeline") == (entry == "run_batched")
+    names = [c.name for c in top.phases()]
+    for phase in ("icm.prepare", "icm.init", "icm.hoist", "icm.refine"):
+        assert names.count(phase) == 1, names
+    order = [names.index(p) for p in ("icm.prepare", "icm.init",
+                                      "icm.hoist", "icm.refine")]
+    assert order == sorted(order)
+    prep, init, refine = (top.phase(p)[0] for p in ("icm.prepare",
+                                                     "icm.init",
+                                                     "icm.refine"))
+    assert init.start >= prep.end and refine.start >= init.end
+    assert sorted(set(prep.names())) == ["icm.prepare.resolve",
+                                         "icm.prepare.scans",
+                                         "icm.prepare.seed_map"]
+    assert prep.names().count("icm.prepare.scans") == W
+    assert prep.names().count("icm.prepare.seed_map") == W
+    # the CPU runs every init chunk and every sweep eagerly
+    assert set(init.names()) == {"icm.init.eager", "icm.init.merge",
+                                 "icm.filter_map"}
+    assert init.names()[-2:] == ["icm.init.merge", "icm.filter_map"]
+    assert refine.names().count("icm.refine.eager") == CFG.N
+    assert "icm.check" in names and "icm.result" in names
+    # no card: no graph, no barrier
+    every = []
+    todo = [top]
+    while todo:
+        n = todo.pop()
+        every.append(n.name)
+        todo.extend(n.children)
+        assert top.start <= n.start <= n.end <= top.end
+    assert not any(n.startswith(("icm.graph.", "icm.sync", "icm.gather"))
+                   for n in every)
+
+
+@pytest.mark.parametrize("entry", ["run", "run_batched"])
+def test_no_profiler_no_record_function_and_the_same_timings(entry,
+                                                              monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    for res in _call(entry):
+        assert set(res.timings) == KEYS[entry]
+        assert all(v >= 0.0 for v in res.timings.values())
+        assert res.timings["init_capture_s"] == 0.0
+        assert res.timings["capture_s"] == 0.0
+        assert res.timings["refine_per_iter_s"] == pytest.approx(
+            res.timings["refine_s"] / CFG.N)
+    if entry == "run_batched":
+        t = res.timings
+        assert t["pipeline_s"] >= t["init_s"] + t["hoist_s"] + t["refine_s"]
+        assert t["per_world_s"] == pytest.approx(
+            t["pipeline_s"] / len(SEEDS))
+
+
+def test_span_stores_its_host_seconds_and_closes_on_error():
+    timings = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("outer", timings, "outer_s"):
+            time.sleep(0.02)
+            with pytest.raises(ValueError):
+                with profiling.span("inner", timings, "inner_s"):
+                    raise ValueError("in the block")
+    assert timings["outer_s"] >= 0.02
+    assert 0.0 <= timings["inner_s"] <= timings["outer_s"]
+    (outer,) = _tree(prof)
+    assert (outer.name, outer.names()) == ("outer", ["inner"])
+
+
+def test_phase_timer_phase_is_a_span():
+    timer = profiling.PhaseTimer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            with timer.phase("assoc", block_on=[torch.ones(3)]):
+                time.sleep(0.005)
+    assert [r.name for r in _tree(prof)] == ["assoc", "assoc"]
+    assert timer.counts == {"assoc": 2}
+    assert timer.totals["assoc"] >= 0.01
+
+
+def test_profiling_loads_no_solver():
+    """``solver`` imports ``span``: ``utils.profiling`` itself imports no
+    part of the solver (``device_trace`` does, when called)."""
+    code = ("import sys, icm_slam_tpu_torch.utils.profiling\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('icm_slam_tpu_torch.solver')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["run", "run_batched"])
+def test_graphs_are_spans_on_the_card(entry):
+    """On a card the init's chunks after the first and the sweeps after
+    the first are replays: one capture span each (the recording inside
+    it), one replay span a replay, the barriers as ``icm.sync``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _call(entry, "cuda")                   # the kernels' library, once
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = _call(entry, "cuda")
+    (top,) = _tree(prof)
+    init, refine = top.phase("icm.init")[0], top.phase("icm.refine")[0]
+    for phase, key in ((init, "init_capture_s"), (refine, "capture_s")):
+        (cap,) = phase.find("icm.graph.capture")
+        assert cap.names() == ["icm.graph.record"]
+        assert res[0].timings[key] > 0
+    nc = -(-(120 - 1) // max(2, int(CFG.init_chunk_len)))
+    assert len(init.find("icm.graph.replay")) == nc - 1
+    assert init.names().count("icm.init.eager") == 1
+    assert len(refine.find("icm.graph.replay")) == CFG.N - 1
+    assert refine.names().count("icm.refine.eager") == 1
+    for phase in ("icm.prepare", "icm.init", "icm.hoist", "icm.refine"):
+        assert top.phase(phase)[0].names()[-1] == "icm.sync"
