@@ -227,11 +227,12 @@ nonzero and the final line is not printed:
    batched sweep + map filter + ``map_change`` under PyTorch's sync
    debug mode "error" on the T=1833 world capped and uncapped and on the
    fleet of eight (phase 18's worlds): no host sync; (c) N=30 sweeps of
-   the main world and of that fleet through ``icm.refine_sweeps`` (one
-   eager sweep, the capture, 29 replays, the replays under "error")
+   the main world and of that fleet through ``icm.refine_sweeps`` (from
+   an empty cache of graphs: one eager sweep, the capture, 29 replays;
+   then the cached graph: 30 replays; the replays under "error")
    against the same sweeps one by one, in turns eager, graph, graph,
    eager: map, poses, witnesses and changes bitwise between every turn,
-   29 replays a graph run, K1 and K3 exactly 30 times and K2 never in
+   29 and 30 replays a graph run, K1 and K3 exactly 30 times and K2 never in
    each; each turn's seconds a sweep, each capture's seconds and a graph
    turn's seconds a replay; then one replay's device time and launches
    under the profiler (its idle share against the replay's seconds).
@@ -240,7 +241,8 @@ nonzero and the final line is not printed:
    the fleet of eight's (phase 18's worlds) init through
    ``BatchedInit``'s steps one by one (``eager_init``) and through
    ``init_sweep_batched``, the graph
-   (the first chunk eager, a capture, nc - 1 = 57 replays), in turns
+   (from an empty cache the first chunk eager, a capture, nc - 1 = 57
+   replays; then the cached graph, nc = 58 replays), in turns
    eager, graph, graph, eager: map, poses and raw count bitwise between
    every turn, the same launches counted in each (K4 twice a chunk, K3
    once); each turn's ``init_s`` and ``init_capture_s``; an eager init
@@ -3187,8 +3189,9 @@ def eager_sweeps(start, N):
 
 
 def graph_sweeps(start, N, timings):
-    """N sweeps through ``icm.refine_sweeps`` (one eager, a capture, N - 1
-    replays); the replays after the first run under the sync debug mode
+    """N sweeps through ``icm.refine_sweeps`` (where the cache holds no
+    graph of the start's shapes one eager, a capture, N - 1 replays, else
+    N replays); the replays after the first run under the sync debug mode
     "error", and their mean seconds go to ``timings["replay_s"]`` (from a
     synchronized card to a synchronized card).  Returns what
     ``eager_sweeps`` returns."""
@@ -3220,9 +3223,11 @@ def phase_graph(smi, N=30):
     """23 (b)-(e): one batched sweep (+ map filter, + map_change) under the
     sync debug mode "error" on the main world capped and uncapped and on
     the fleet of eight; then N sweeps eager and from the graph, in turns
-    eager, graph, graph, eager, on the main world and the fleet of eight:
-    map, poses, witnesses and changes bitwise between every turn, replays
-    N - 1 a graph run (its first sweep is eager), K1 N times in each;
+    eager, graph, graph, eager, on the main world and the fleet of eight,
+    from an empty cache of graphs: map, poses, witnesses and changes
+    bitwise between every turn, replays N - 1 in the first graph run (a
+    miss: its first sweep is eager, then the capture) and N in the second
+    (a hit: no capture), K1 N times in each;
     each turn's seconds a sweep (the graph's with its capture and first
     eager sweep) and a graph turn's seconds a replay; one replay under the
     sync debug mode and the profiler (its device time)."""
@@ -3253,6 +3258,7 @@ def phase_graph(smi, N=30):
     runs = {}
     for name, start in starts.items():
         turns, times, n_k1 = [], [], []
+        cuda_graph.GRAPHS.clear()
         for kind in ("eager", "graph", "graph", "eager"):
             timings = {}
             replays = cuda_graph.REPLAYS
@@ -3264,9 +3270,14 @@ def phase_graph(smi, N=30):
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             if kind == "graph":
-                check(cuda_graph.REPLAYS - replays == N - 1,
-                      f"{name}: {cuda_graph.REPLAYS - replays} replays in a "
-                      f"graph run of {N} sweeps; want {N - 1}")
+                hit = any(t["kind"] == "graph" for t in times)
+                want = N if hit else N - 1
+                check(cuda_graph.REPLAYS - replays == want
+                      and (timings["capture_s"] == 0.0) == hit,
+                      f"{name}: {cuda_graph.REPLAYS - replays} replays, "
+                      f"capture_s {timings['capture_s']} in a graph run of "
+                      f"{N} sweeps; want {want}, "
+                      f"{'a hit' if hit else 'a miss'}")
             k4 = 2 * start[3].pose_passes * N
             check(n["k1"] == N and n["k2"] == 0 and n["k3"] == N
                   and n["k4"] == k4,
@@ -3293,10 +3304,11 @@ def phase_graph(smi, N=30):
             replay_profile={k: v for k, v in replay.items()
                             if k != "top_kernels_ms_count"},
             census=[int(v) for v in turns[0][0].nact.reshape(-1)],
-            replays_a_graph_run=N - 1, vs_eager="bitwise")
+            replays_a_graph_run=[N - 1, N], vs_eager="bitwise")
     emit(phase="graph_vs_eager", order="eager, graph, graph, eager",
-         note="a graph run: the first sweep eager, then the capture, then "
-              "N - 1 replays; sweep_s includes the capture",
+         note="the first graph run: the first sweep eager, then the "
+              "capture, then N - 1 replays; sweep_s includes the capture; "
+              "the second: N replays of the cached graph",
          **runs, card=smi)
     return runs
 
@@ -3426,10 +3438,11 @@ def phase_k4():
 
 def phase_init_graph(smi):
     """24: the batched init of the main world and of the fleet of eight
-    (phase 18's worlds) eagerly and through the graph (the first chunk
-    eager, a capture, nc - 1 replays), in turns eager, graph, graph,
-    eager: map, poses and raw count bitwise between every turn, nc - 1
-    replays a graph turn, the same launches counted in every turn (K4
+    (phase 18's worlds) eagerly and through the graph, in turns eager,
+    graph, graph, eager from an empty cache of graphs (the first graph
+    turn the first chunk eager, a capture, nc - 1 replays; the second nc
+    replays of the cached graph): map, poses and raw count bitwise
+    between every turn, the same launches counted in every turn (K4
     twice a chunk); each turn's init_s (the init alone, from a
     synchronized card to a synchronized card) and init_capture_s; an
     eager init under the sync debug mode "error"; the launches and host
@@ -3454,6 +3467,7 @@ def phase_init_graph(smi):
     runs = {}
     for name, (d, seed, x, c, w) in starts.items():
         turns, times, counts = [], [], []
+        cuda_graph.GRAPHS.clear()
         for kind in ("eager", "graph", "graph", "eager"):
             timings = {}
             replays = cuda_graph.REPLAYS
@@ -3466,10 +3480,15 @@ def phase_init_graph(smi):
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             nc = -(-(d.dist.shape[-2] - 1) // c.init_chunk_len)
-            want = nc - 1 if kind == "graph" else 0
-            check(cuda_graph.REPLAYS - replays == want,
+            hit = kind == "graph" and any(t["kind"] == "graph"
+                                          for t in times)
+            want = (nc if hit else nc - 1) if kind == "graph" else 0
+            check(cuda_graph.REPLAYS - replays == want
+                  and (timings["init_capture_s"] == 0.0) == (
+                      hit or kind == "eager"),
                   f"init {name} {kind}: {cuda_graph.REPLAYS - replays} "
-                  f"replays; want {want}")
+                  f"replays, init_capture_s {timings['init_capture_s']}; "
+                  f"want {want}, {'a hit' if hit else 'a miss'}")
             check(n["k4"] == c.init_rounds * nc and n["k3"] == 1,
                   f"init {name} {kind}: K4 {n['k4']}x, K3 {n['k3']}x; want "
                   f"{c.init_rounds * nc} and 1")
@@ -3499,7 +3518,7 @@ def phase_init_graph(smi):
         graphed = [t["init_s"] for t in times if t["kind"] == "graph"]
         runs[name] = dict(
             W=1 if one else x.shape[0], chunks=nc,
-            replays_a_graph_turn=nc - 1, turns=times, eager_init_s=eager,
+            replays_a_graph_turn=[nc - 1, nc], turns=times, eager_init_s=eager,
             graph_init_s=graphed, graph_over_eager=sum(graphed) / sum(eager),
             vs_eager="bitwise", k4_launches=counts[0]["k4"],
             eager_init_host_syncs=0,

@@ -8,10 +8,13 @@ of ``models/``: ``ba`` and ``windowed_ba``), each followed by the map
 filter.  The per-sweep witnesses and map changes stay on the device
 during a segment of sweeps and are checked at its end, before any
 observer sees the segment's state, as the fused JAX loop does.  On the
-card the batched sweeps after the first are replays of one captured CUDA
-graph (``refine_sweeps``), the counterpart of that fused loop, and so are
-the batched init's chunks after the first (``init_sweep_batched``), the
-counterpart of JAX's compiled init.
+card the batched sweeps are replays of one captured CUDA graph
+(``refine_sweeps``), the counterpart of that fused loop, and so are the
+batched init's chunks (``init_sweep_batched``), the counterpart of JAX's
+compiled init.  Both graphs are kept across calls
+(``cuda_graph.GRAPHS``): a call whose shapes and config an earlier call
+had replays them with no capture and no eager first step, and its
+``timings["graph_hits"]`` counts them (0-2).
 
 ``run_batched`` is fleet mode: W same-shape worlds through the engines at
 once, on a leading world axis (the JAX package's ``vmap``), so that W
@@ -21,7 +24,8 @@ sharded over the ranks of a process group.
 Each call's phases are spans (``utils.profiling.span``): ``icm.run`` or
 ``icm.run_batched`` around the whole call, and inside it ``icm.prepare``
 (``icm.prepare.scans``, ``icm.prepare.resolve``, ``icm.prepare.seed_map``),
-``icm.init`` (``icm.init.eager``, the init's ``icm.graph.*``,
+``icm.init`` (``icm.init.eager``, the init's ``icm.graph.*``: a miss's
+``icm.graph.capture``, a hit's ``icm.graph.load``, the replays;
 ``icm.init.merge``, ``icm.filter_map``), ``icm.hoist``, ``icm.refine``
 (``icm.refine.eager``, the sweeps' ``icm.graph.*``), ``icm.check``,
 ``icm.sync``, ``icm.result`` and ``icm.gather``; ``run_batched`` holds
@@ -34,6 +38,7 @@ feed ``timings`` are ``icm.prepare`` (``prepare_s``), ``icm.init``
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -48,7 +53,7 @@ from icm_slam_tpu_torch.frontend.scan_filter import (filter_scans,
 from icm_slam_tpu_torch.mapping.landmark_map import (MapState, empty_map,
                                                      filter_map,
                                                      seed_from_clusters)
-from icm_slam_tpu_torch.solver.cuda_graph import CapturedStep
+from icm_slam_tpu_torch.solver import cuda_graph
 from icm_slam_tpu_torch.solver.sweeps import (SweepData, auto_obs_cap,
                                               compact_data, init_sweep,
                                               init_sweep_batched,
@@ -301,7 +306,7 @@ def uses_graph(config: ICMConfig, device: torch.device) -> bool:
     sequential, ``ba`` and ``windowed_ba`` sweeps and a model's hooks run
     eagerly; so does a time mesh's sweep (``refine_sweep_batched(...,
     mesh=)``, which no loop here runs)."""
-    return (device.type == "cuda" and config.sweep_mode == "batched"
+    return (cuda_graph.captures(device) and config.sweep_mode == "batched"
             and config.model is None)
 
 
@@ -311,38 +316,60 @@ def refine_sweeps(data: SweepData, cur_map: MapState, x, config: ICMConfig,
     after each (change: ``map_change`` against the sweep's input map, or
     None without ``change``).  Nothing waits for the device.
 
-    Where ``uses_graph``, the first sweep runs eagerly and the others are
-    replays of one CUDA graph that captures a sweep (``_refine_step`` and
-    the change) after it: the port's counterpart of JAX's fused
-    ``_refine_loop_jit``.  The yielded map and poses are then the graph's
-    static buffers, which the next replay overwrites (the witness and the
-    change are copies); ``data`` and ``w`` stay in place meanwhile.  A
-    capture that fails raises: the card never falls back to eager sweeps.
-    The capture's seconds go to ``timings["capture_s"]`` when given (0
-    without a capture).
+    Where ``uses_graph``, the sweeps are replays of one CUDA graph that
+    captures a sweep (``_refine_step`` and the change): the port's
+    counterpart of JAX's fused ``_refine_loop_jit``.  The graph is kept
+    across calls in ``cuda_graph.GRAPHS`` under the shapes of ``data``,
+    ``w``, the map and the poses, the config and ``change``.  A call that
+    misses runs the first sweep eagerly over the cache entry's copies of
+    ``data`` and ``w`` and captures the graph after it; a call that hits
+    copies its ``data``, ``w``, map and poses into the entry and replays
+    every sweep.  The yielded map and poses are then the graph's static
+    buffers, which the next replay overwrites, except the last sweep's,
+    which are copies (the entry goes back to the cache before they are
+    yielded); the witness and the change are copies.  A capture that
+    fails raises: the card never falls back to eager sweeps.  The
+    capture's seconds go to ``timings["capture_s"]`` when given (0
+    without a capture), a hit to ``timings["graph_hits"]``.
     """
-    def sweep(cur_map, x):
+    def sweep(data, w, cur_map, x):
         new_map, x, wit = _refine_step(data, cur_map, x, config, w)
         return new_map, x, wit, (map_change(new_map, cur_map,
                                             live_cap=config.map_run_cap)
                                  if change else None)
 
-    graphed, graph = uses_graph(config, x.device), None
     if timings is not None:
         timings["capture_s"] = 0.0
-    for k in range(n_iters):
-        if k == 0 or not graphed:
+    if n_iters < 1 or not uses_graph(config, x.device):
+        for _ in range(n_iters):
             with span("icm.refine.eager"):
-                cur_map, x, wit, chg = sweep(cur_map, x)
+                cur_map, x, wit, chg = sweep(data, w, cur_map, x)
             yield cur_map, x, wit, chg
-            continue
-        if graph is None:
-            with span("icm.graph.capture", timings, "capture_s"):
-                graph = CapturedStep(sweep, cur_map, x)
-        graph.replay()
-        wit, chg = graph.outs
-        yield (*graph.state, wit.clone(),
-               None if chg is None else chg.clone())
+        return
+    key = cuda_graph.graph_key("refine", config, data, w, cur_map, x,
+                               change=change)
+    entry = cuda_graph.GRAPHS.take(key, timings)
+    if entry is None:
+        entry = cuda_graph.CachedStep((data, w))
+    else:
+        entry.load((data, w), cur_map, x)
+    step = functools.partial(sweep, *entry.inputs)
+    for k in range(n_iters):
+        if entry.graph is None and k == 0:
+            with span("icm.refine.eager"):
+                cur_map, x, wit, chg = step(cur_map, x)
+        else:
+            if entry.graph is None:
+                with span("icm.graph.capture", timings, "capture_s"):
+                    entry.capture(step, cur_map, x)
+            entry.graph.replay()
+            (cur_map, x), (wit, chg) = entry.graph.state, entry.graph.outs
+            wit, chg = wit.clone(), None if chg is None else chg.clone()
+            if k == n_iters - 1:
+                cur_map = MapState(*(a.clone() for a in cur_map))
+                x = x.clone()
+                cuda_graph.GRAPHS.give(key, entry)
+        yield cur_map, x, wit, chg
 
 
 def refine_loop(data: SweepData, cur_map: MapState, x, config: ICMConfig, w,
@@ -429,7 +456,7 @@ def run(dataset: Dataset, config: ICMConfig, device,
     check_supported(config)
     device = resolve_device(device)
     n_iters = config.N if n_iters is None else n_iters
-    timings = {}
+    timings = {"graph_hits": 0}
     with span("icm.run"):
         with span("icm.prepare", timings, "prepare_s"):
             data = prepare(dataset, config, device)
@@ -560,7 +587,7 @@ def run_batched(datasets, config: ICMConfig, device,
     empty), each with the shared timings ``prepare_s``, ``init_s``,
     ``hoist_s``, ``refine_s`` (with ``capture_s``, ``refine_sweeps``'s
     CUDA-graph capture), ``refine_per_iter_s``, ``pipeline_s`` (init to
-    the last sweep) and ``per_world_s``.
+    the last sweep), ``per_world_s`` and ``graph_hits``.
 
     Every world has the same (T, n_beams) shape and runs under the merged
     config of ``resolve_fleet_config``.
@@ -582,7 +609,7 @@ def run_batched(datasets, config: ICMConfig, device,
     device = resolve_device(device)
     n_iters = config.N if n_iters is None else n_iters
     W = len(datasets)
-    timings = {}
+    timings = {"graph_hits": 0}
     with span("icm.run_batched"):
         worlds = None
         if mesh is not None:

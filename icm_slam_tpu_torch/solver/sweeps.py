@@ -64,7 +64,7 @@ from icm_slam_tpu_torch.mapping.landmark_map import (MapState, add_rows,
 from icm_slam_tpu_torch.ops.assoc import nearest_landmark
 from icm_slam_tpu_torch.ops.assoc_sums import associate_and_sums
 from icm_slam_tpu_torch.ops.pose_lm import pose_lm, pose_lm_plain
-from icm_slam_tpu_torch.solver.cuda_graph import CapturedStep
+from icm_slam_tpu_torch.solver import cuda_graph
 from icm_slam_tpu_torch.utils.profiling import span
 
 
@@ -641,18 +641,17 @@ class BatchedInit:
     def step(self, carry: _InitCarry, ci):
         """Chunk ``ci`` ((1,) int64 on the device) from ``carry``; its
         poses go to ``xs[:, ci]``.  Returns (the next carry, ci + 1)."""
-        inp = _InitChunk(*(a.index_select(1, ci).squeeze(1)
-                           for a in self.chunks))
-        carry, x = _init_chunk(inp, carry, self.config, self.w)
-        self.xs.index_copy_(1, ci, x[:, None])
-        return carry, ci + 1
+        return _chunk_step(self.chunks, self.xs, self.config, self.w, carry,
+                           ci)
 
-    def finish(self, carry: _InitCarry):
+    def finish(self, carry: _InitCarry, xs=None):
         """(merged map_state, poses (W, T, 3), raw_nact (W,)) from the
-        carry after the last chunk: the duplicate merge, once."""
+        carry after the last chunk and the chunks' poses (``xs``, by
+        default ``self.xs``): the duplicate merge, once."""
         W = self.x0.shape[0]
+        xs = self.xs if xs is None else xs
         x = torch.cat([self.x0[:, None],
-                       self.xs.reshape(W, -1, 3)[:, :self.T - 1]], dim=1)
+                       xs.reshape(W, -1, 3)[:, :self.T - 1]], dim=1)
         base_sx, base_sy, base_cnt, nact, _ = carry
         live = base_cnt > 0
         pos = (torch.stack([base_sx, base_sy], dim=-1)
@@ -663,6 +662,15 @@ class BatchedInit:
                             self.config.dist_thr,
                             live_cap=resolve_init_merge_cap(self.config))
         return merged, x, nact
+
+
+def _chunk_step(chunks: _InitChunk, xs, config, w, carry: _InitCarry, ci):
+    """``BatchedInit.step`` over the padded chunks ``chunks`` and the
+    poses ``xs`` (W, nc, C, 3) it writes into."""
+    inp = _InitChunk(*(a.index_select(1, ci).squeeze(1) for a in chunks))
+    carry, x = _init_chunk(inp, carry, config, w)
+    xs.index_copy_(1, ci, x[:, None])
+    return carry, ci + 1
 
 
 def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w,
@@ -678,12 +686,16 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w,
     poses and (W,) counts, and merges the W tables in one ``filter_map``.
 
     The chunks are ``BatchedInit`` steps.  On a CUDA device with the
-    default model the first chunk runs eagerly, one chunk is captured in a
-    CUDA graph (``solver.cuda_graph.CapturedStep``) and replayed for the
-    other nc - 1: the counterpart of JAX's compiled ``_init_jit``, bitwise
-    the eager chunks (the same kernels in the same order).  A capture that
-    fails raises.  Its seconds go to ``timings["init_capture_s"]`` when
-    given (0 without a capture).  Elsewhere the steps run in a Python
+    default model they are replays of one chunk's CUDA graph, kept across
+    calls in ``solver.cuda_graph.GRAPHS`` under the chunks' shapes and the
+    config: the counterpart of JAX's compiled ``_init_jit``, bitwise the
+    eager chunks (the same kernels in the same order).  A call that misses
+    runs the first chunk eagerly over the cache entry's copies of the
+    chunks and the weights, captures one and replays it for the other
+    nc - 1; a call that hits copies its chunks and start into the entry
+    and replays all nc.  A capture that fails raises.  Its seconds go to
+    ``timings["init_capture_s"]`` when given (0 without a capture), a hit
+    to ``timings["graph_hits"]``.  Elsewhere the steps run in a Python
     loop.  The chunks run eagerly are spans ``icm.init.eager``, the merge
     ``icm.init.merge`` (``utils.profiling.span``).
     """
@@ -693,24 +705,43 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w,
             w, timings)
         return world(state), x[0], nact[0]
     run = BatchedInit(data, seed, x0, config, w)
-    graphed = x0.is_cuda and config.model is None
-    captured = None
     if timings is not None:
         timings["init_capture_s"] = 0.0
-    state = run.start
-    for k in range(run.nc):
-        if k == 0 or not graphed:
+    if not (cuda_graph.captures(x0.device) and config.model is None):
+        state = run.start
+        for _ in range(run.nc):
             with span("icm.init.eager"):
                 state = run.step(*state)
+        with span("icm.init.merge"):
+            return run.finish(state[0])
+    inputs = (run.chunks, run.xs, run.w)
+    key = cuda_graph.graph_key("init", config, inputs, *run.start)
+    entry = cuda_graph.GRAPHS.take(key, timings)
+    if entry is None:
+        entry = cuda_graph.CachedStep(inputs)
+    else:
+        entry.load(inputs, *run.start)
+    chunks, xs, weights = entry.inputs
+    step = functools.partial(_chunk_step, chunks, xs, config, weights)
+    state = run.start
+    for k in range(run.nc):
+        if entry.graph is None and k == 0:
+            with span("icm.init.eager"):
+                state = step(*state)
             continue
-        if captured is None:
+        if entry.graph is None:
             with span("icm.graph.capture", timings, "init_capture_s"):
-                captured = CapturedStep(run.step, *state)
-        captured.replay()
-    if captured is not None:
-        state = captured.state
+                entry.capture(step, *state)
+        entry.graph.replay()
     with span("icm.init.merge"):
-        return run.finish(state[0])
+        if entry.graph is None:             # one chunk: nothing captured
+            return run.finish(state[0], xs)
+        # the merge's map and poses are new tensors; the count is the
+        # entry's until copied
+        merged, x, nact = run.finish(entry.graph.state[0], xs)
+        nact = nact.clone()
+    cuda_graph.GRAPHS.give(key, entry)
+    return merged, x, nact
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,12 @@ bitwise, and bitwise from run to run; the order ``ops.pose_lm.reduce_plan``
 gives K4's sums bitwise torch's own CUDA sums over dim 1; the
 batched init's chunks replayed from a CUDA graph bitwise the eager chunks
 (one world, W = 4, and on a card that is not the current one), and an
-init capture that fails raises.
+init capture that fails raises.  The graphs kept across calls
+(``solver.cuda_graph.GRAPHS``): ``run()`` over worlds of two shapes in
+the order A, B, A' (A's shape, other data) and ``run_batched`` twice on
+two fleets of eight of one shape, each answer bitwise the same solve with
+the cache cleared; the captures, hits, replays and launches that gives;
+what a call returns unchanged by the next call that hits.
 """
 import collections
 
@@ -608,6 +613,7 @@ def _hold_graph_to_eager(dev):
         eager.append((wit, icm.map_change(new, cur,
                                           live_cap=cfg.map_run_cap)))
         cur = new
+    cuda_graph.GRAPHS.clear()              # a miss: capture after sweep 0
     replays = cuda_graph.REPLAYS
     n1, n3 = _build.launches("assoc_sums"), _build.launches("relabel_walk")
     n4 = _build.launches("pose_lm")
@@ -848,6 +854,7 @@ def _hold_init_graph(dev, W):
                           type(seed)(*(a[0] for a in seed)), x0[0])
     outs, counts = [], []
     nc = -(-(240 - 1) // cfg.init_chunk_len)
+    cuda_graph.GRAPHS.clear()              # a miss: capture after chunk 0
     for graph in (False, True):
         replays = cuda_graph.REPLAYS
         before = collections.Counter(_build.LAUNCHES)
@@ -892,7 +899,7 @@ def test_an_init_capture_that_fails_raises(dev, monkeypatch):
     init raises (nothing falls back to eager chunks)."""
     from icm_slam_tpu_torch.config import ICMConfig
     from icm_slam_tpu_torch.data.datasets import synthetic_world
-    from icm_slam_tpu_torch.solver import icm, sweeps
+    from icm_slam_tpu_torch.solver import cuda_graph, icm, sweeps
     ds = synthetic_world(T=120, n_landmarks=10, seed=7)
     cfg = ICMConfig(L=256, cota=20.0, N=1)
     data = icm.prepare(ds, cfg, dev)
@@ -905,6 +912,118 @@ def test_an_init_capture_that_fails_raises(dev, monkeypatch):
         carry, x = chunk(inp, carry, config, w)
         return carry, x + float(x.sum()) * 0.0
     monkeypatch.setattr(sweeps, "_init_chunk", reads_back)
+    cuda_graph.GRAPHS.clear()              # no graph of this shape to hit
     with pytest.raises(RuntimeError):
         sweeps.init_sweep_batched(data, seed, x0, cfg,
                                   icm.weights(cfg, dev))
+
+
+# --- the graphs kept across calls ------------------------------------------
+
+def _other_data(ds):
+    """``ds``'s shape and beams with other odometry, controls and start:
+    the same resolved config (the same graphs), other answers."""
+    from icm_slam_tpu_torch.data.datasets import Dataset
+    rng = np.random.default_rng(3)
+    return Dataset(ds.scans, ds.odom + rng.normal(0, 1e-3, ds.odom.shape),
+                   ds.u + rng.normal(0, 1e-3, ds.u.shape),
+                   ds.x0 + np.array([0.01, -0.02, 0.003]))
+
+
+def _same_answer(a, b):
+    return all(np.array_equal(u, v) for u, v in zip(
+        (a.x_init, a.x, a.map_pos, a.map_counts, a.changes),
+        (b.x_init, b.x, b.map_pos, b.map_counts, b.changes)))
+
+
+def test_cached_graphs_answer_as_a_cleared_cache(dev):
+    """``run()`` on A, B, A' (B another length, A' A's shape with other
+    data): A and B capture both graphs, A' replays both from the cache
+    (nc + N replays, no capture); every answer bitwise the same solve
+    after the cache was cleared; A' counts A's launches."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver import cuda_graph, icm
+    a = synthetic_world(T=240, n_landmarks=12, seed=7)
+    worlds = [a, synthetic_world(T=200, n_landmarks=12, seed=10),
+              _other_data(a)]
+    cfg = ICMConfig(L=256, cota=20.0, N=4)
+    fresh = []
+    for ds in worlds:
+        cuda_graph.GRAPHS.clear()
+        fresh.append(icm.run(ds, cfg, dev))
+    cuda_graph.GRAPHS.clear()
+    caps, hits = cuda_graph.CAPTURES, cuda_graph.CACHE_HITS
+    got, counts, replays = [], [], []
+    for ds in worlds:
+        before, n = collections.Counter(_build.LAUNCHES), cuda_graph.REPLAYS
+        got.append(icm.run(ds, cfg, dev))
+        counts.append(_build.LAUNCHES - before)
+        replays.append(cuda_graph.REPLAYS - n)
+    assert cuda_graph.CAPTURES - caps == 4
+    assert cuda_graph.CACHE_HITS - hits == 2
+    assert [r.timings["graph_hits"] for r in got] == [0, 0, 2]
+    assert got[2].timings["init_capture_s"] == 0.0
+    assert got[2].timings["capture_s"] == 0.0
+    nc = -(-(240 - 1) // cfg.init_chunk_len)
+    assert replays[0] == (nc - 1) + (cfg.N - 1)
+    assert replays[2] == nc + cfg.N
+    assert counts[2] == counts[0]
+    assert all(_same_answer(f, g) for f, g in zip(fresh, got))
+    assert not _same_answer(got[0], got[2])
+
+
+def test_a_fleet_twice_answers_as_a_cleared_cache(dev):
+    """``run_batched`` on a fleet of eight, then on a fleet of eight of
+    the same shape with other data: the second call hits both graphs and
+    each world's answer is bitwise the same call's after the cache was
+    cleared."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver import cuda_graph, icm
+    one = [synthetic_world(T=240, n_landmarks=12, seed=s) for s in range(8)]
+    two = [_other_data(ds) for ds in one]
+    cfg = ICMConfig(L=256, cota=20.0, N=4)
+    fresh = []
+    for fleet in (one, two):
+        cuda_graph.GRAPHS.clear()
+        fresh.append(icm.run_batched(fleet, cfg, dev))
+    cuda_graph.GRAPHS.clear()
+    caps = cuda_graph.CAPTURES
+    got = [icm.run_batched(fleet, cfg, dev) for fleet in (one, two)]
+    assert cuda_graph.CAPTURES - caps == 2
+    assert [g[0].timings["graph_hits"] for g in got] == [0, 2]
+    for f, g in zip(fresh, got):
+        assert all(_same_answer(u, v) for u, v in zip(f, g))
+
+
+def test_what_a_call_returns_outlives_the_next_hit(dev):
+    """The init's and the sweeps' tensors that one call returns are its
+    own: the next call with the same shapes, which replays the cached
+    graphs over their buffers, leaves them as they were."""
+    from icm_slam_tpu_torch.config import ICMConfig
+    from icm_slam_tpu_torch.core.energy import weights
+    from icm_slam_tpu_torch.data.datasets import synthetic_world
+    from icm_slam_tpu_torch.solver import cuda_graph, icm
+    from icm_slam_tpu_torch.solver.sweeps import init_sweep_batched
+    cfg = ICMConfig(L=256, cota=20.0, N=4)
+
+    def call(ds):
+        data = icm.prepare(ds, cfg, dev)
+        c = icm.resolve_config(cfg, data)
+        x0 = torch.as_tensor(ds.x0, device=dev).float()
+        w = weights(c, dev)
+        init = init_sweep_batched(data, icm.seed_map(data, x0, c), x0, c, w)
+        *_, last = icm.refine_sweeps(icm.hoist_compaction(data, c), init[0],
+                                     init[1], c, w, c.N, change=True)
+        return init, last
+
+    a = synthetic_world(T=240, n_landmarks=12, seed=7)
+    cuda_graph.GRAPHS.clear()
+    first = call(a)
+    kept = cuda_graph._clone(first)
+    hits = cuda_graph.CACHE_HITS
+    call(_other_data(a))
+    assert cuda_graph.CACHE_HITS - hits == 2
+    for u, v in zip(cuda_graph._leaves(first), cuda_graph._leaves(kept)):
+        assert u is None or torch.equal(u, v)

@@ -17,15 +17,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from icm_slam_tpu_torch.config import ICMConfig
 from icm_slam_tpu_torch.data.datasets import synthetic_world
-from icm_slam_tpu_torch.solver import icm
+from icm_slam_tpu_torch.solver import cuda_graph, icm
 from icm_slam_tpu_torch.utils import profiling
 
 CFG = ICMConfig(N=2, L=256, cota=5.0)
 SEEDS = (7, 10)
 
-# what each entry point reported before its phases were spans
+# what each entry point reported before its phases were spans, and the
+# graphs it took from the cache of captured steps
 KEYS = {"run": {"prepare_s", "init_s", "init_capture_s", "hoist_s",
-                "refine_s", "capture_s", "refine_per_iter_s"}}
+                "refine_s", "capture_s", "refine_per_iter_s", "graph_hits"}}
 KEYS["run_batched"] = KEYS["run"] | {"pipeline_s", "per_world_s"}
 
 
@@ -167,6 +168,7 @@ def test_no_profiler_no_record_function_and_the_same_timings(entry,
         assert all(v >= 0.0 for v in res.timings.values())
         assert res.timings["init_capture_s"] == 0.0
         assert res.timings["capture_s"] == 0.0
+        assert res.timings["graph_hits"] == 0
         assert res.timings["refine_per_iter_s"] == pytest.approx(
             res.timings["refine_s"] / CFG.N)
     if entry == "run_batched":
@@ -216,12 +218,14 @@ def test_profiling_loads_no_solver():
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["run", "run_batched"])
 def test_graphs_are_spans_on_the_card(entry):
-    """On a card the init's chunks after the first and the sweeps after
-    the first are replays: one capture span each (the recording inside
-    it), one replay span a replay, the barriers as ``icm.sync``."""
+    """On a card, in a call that finds no graph in the cache, the init's
+    chunks after the first and the sweeps after the first are replays:
+    one capture span each (the recording inside it), one replay span a
+    replay, the barriers as ``icm.sync``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _call(entry, "cuda")                   # the kernels' library, once
+    cuda_graph.GRAPHS.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = _call(entry, "cuda")
@@ -238,3 +242,29 @@ def test_graphs_are_spans_on_the_card(entry):
     assert refine.names().count("icm.refine.eager") == 1
     for phase in ("icm.prepare", "icm.init", "icm.hoist", "icm.refine"):
         assert top.phase(phase)[0].names()[-1] == "icm.sync"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["run", "run_batched"])
+def test_a_hit_replays_every_step_on_the_card(entry):
+    """A call whose graphs an earlier call with the same shapes left in
+    the cache: one load span and only replays in the init (nc) and in the
+    sweeps (N), no capture and no eager step; zero capture seconds and
+    two hits in its timings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _call(entry, "cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = _call(entry, "cuda")
+    (top,) = _tree(prof)
+    init, refine = top.phase("icm.init")[0], top.phase("icm.refine")[0]
+    nc = -(-(120 - 1) // max(2, int(CFG.init_chunk_len)))
+    for phase, replays in ((init, nc), (refine, CFG.N)):
+        assert phase.names().count("icm.graph.load") == 1
+        assert phase.names().count("icm.graph.replay") == replays
+        assert not {"icm.graph.capture", "icm.init.eager",
+                    "icm.refine.eager"} & set(phase.names())
+    for r in res:
+        assert r.timings["graph_hits"] == 2
+        assert r.timings["init_capture_s"] == r.timings["capture_s"] == 0.0
