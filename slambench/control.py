@@ -16,6 +16,8 @@ check reads, for three answers:
 * ``no_refine``: the float32 reference with its refinement sweeps left
   out (a stage that returns its state unchanged), in the program's place.
 
+The reference is the one the cell's configuration names, with the
+parameters the entry took from it (``Entry.ref``, ``Entry.params``).
 One JSON line a seed and world.  The benchmark's own runs never run this.
 """
 import argparse
@@ -37,19 +39,18 @@ def main(argv=None) -> int:
     import torch
 
     from slambench.harness.registry import Registry
-    from slambench.reference import icm as ref
 
     reg = Registry(ROOT)
     spec = reg.cell(args.workload)
     config = reg.config(spec["config"])
     limits = reg.limits(args.workload)
-    params = ref.Params.from_solver(config["solver"])
 
     def answer(r):
         return (r.x_init, r.x, r.map_pos, r.map_counts)
 
     for seed in args.seeds:
         gen = reg.generator(spec["traffic"], config, seed, args.device)
+        params = gen.params
         worlds = gen.held(seed, range(len(gen.worlds)),
                           limits["check_worlds"])
         answers, i = {}, 0

@@ -7,7 +7,6 @@ import time
 
 from slambench.harness import drive
 from slambench.reference import compare
-from slambench.reference import icm as ref
 
 
 class Entry(drive.Entry):
@@ -51,10 +50,11 @@ class Entry(drive.Entry):
 
     def reference(self, k, params, dtype=None):
         dtype = dtype or self.torch.float32
-        return ref.streamed(self.worlds[k], params, self.device, dtype=dtype)
+        return self.ref.streamed(self.worlds[k], params, self.device,
+                                 dtype=dtype)
 
     def numbers(self, k, ans, whole, params):
         got = super().numbers(k, ans, whole, params)
-        got.update(compare.steps(ans, ref.replay_stream(
+        got.update(compare.steps(ans, self.ref.replay_stream(
             self.worlds[k], ans[0], params, self.device)))
         return got

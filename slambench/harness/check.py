@@ -3,13 +3,12 @@ window has closed: for a sample of the served worlds, drawn from the
 run's seed (``Entry.held``), the reference runs the world whole, and every
 distinct answer the window gave for those worlds (an answer that repeats
 bitwise is held once) is held to that run, number by number
-(``Entry.numbers``, ``reference/compare.py``).  Each number's worst
-reading is held to the cell's limit."""
+(``Entry.numbers``, ``reference/compare.py``), with the parameters the
+entry took from its reference at set-up (``Entry.params``).  Each
+number's worst reading is held to the cell's limit."""
 from __future__ import annotations
 
 import hashlib
-
-from slambench.reference import icm as ref
 
 
 def _digest(answer) -> str:
@@ -23,7 +22,7 @@ def judge(gen, requests, limits: dict, seed: int):
     """Returns (correct, the worst reading of each number of the cell's
     limits, the number of distinct answers held, the number of requests
     with an answer out of its limits)."""
-    params = ref.Params.from_solver(gen.solver_spec)
+    params = gen.params
     lim = limits["limits"]
     whole = gen.held(seed, [k for r in requests for k in r.worlds],
                      int(limits["check_worlds"]))

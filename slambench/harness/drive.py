@@ -5,13 +5,15 @@ serves one request through the program, and, where the mix needs another
 shape of load, brings its own request loop.  What every entry shares lives
 here: the worlds from the run's seed, the solver's configuration, the
 spans, the closed loop of one client, the traced sub-window, and what the
-correctness check asks of an entry (which worlds it holds, the reference's
-run of a world, the numbers compared).
+correctness check asks of an entry (the reference the configuration names
+and its parameters, which worlds it holds, the reference's run of a world,
+the numbers compared).
 
 A mix's common parameters: ``entry``; ``trace``, the traced sub-window of
 a ``--trace 1`` run (``{"requests": n}``); the rest are the entry's own
 (its docstring lists them).  The worlds come from the run's seed
-(``worlds.make_worlds``); the program gets only them.
+(``worlds.make_worlds``, by the configuration's generator); the program
+gets only them.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from typing import Optional
 
 from slambench.harness.worlds import make_worlds
 from slambench.reference import compare
-from slambench.reference import icm as ref
 
 
 @dataclasses.dataclass
@@ -57,20 +58,30 @@ class Entry:
     """One program entry point under a closed loop of one client: each
     request starts as the last one returns.  A subclass gives
     ``n_worlds`` and ``request`` and, where they differ from these,
-    ``warm``, ``traced``, ``window`` and the check's hooks."""
+    ``warm``, ``traced``, ``window`` and the check's hooks.
 
-    def __init__(self, traffic: dict, config: dict, seed: int, device):
+    ``self.ref`` is the reference module that the configuration's
+    ``"reference"`` names (``icm`` where it names none), and
+    ``self.params`` its ``Params`` of the configuration's solver: a
+    configuration that the reference does not implement is refused here,
+    before any world is made or served."""
+
+    def __init__(self, traffic: dict, config: dict, seed: int, device,
+                 registry):
         import torch
         from icm_slam_tpu_torch.config import ICMConfig
         from icm_slam_tpu_torch.data.datasets import Dataset
         self.torch = torch
         self.traffic, self.device = traffic, device
         self.solver_spec = config["solver"]
+        self.ref = registry.reference(config.get("reference", "icm"))
+        self.params = self.ref.Params.from_solver(self.solver_spec)
         self.solver = ICMConfig(**{
             k: (tuple(v) if isinstance(v, list) else v)
             for k, v in self.solver_spec.items()})
         self.worlds = make_worlds(config["world"], seed,
-                                  self.n_worlds(traffic, config))
+                                  self.n_worlds(traffic, config),
+                                  registry.world_generator)
         self.datasets = [Dataset(w.scans, w.odom, w.u, w.x0)
                          for w in self.worlds]
 
@@ -117,13 +128,13 @@ class Entry:
     def reference(self, k: int, params, dtype=None):
         """The reference's run of world ``k`` as this entry serves it."""
         dtype = dtype or self.torch.float32
-        return ref.offline(self.worlds[k], params, self.device, dtype)
+        return self.ref.offline(self.worlds[k], params, self.device, dtype)
 
     def numbers(self, k: int, ans, whole, params) -> dict:
         """Every number of ``reference/compare.py`` for the answer ``ans``
         of world ``k`` against the reference's run ``whole``, and against
         the map the reference builds from the answer's own state."""
         got = compare.gaps(ans, whole)
-        got.update(compare.selfs(ans, ref.remap(
+        got.update(compare.selfs(ans, self.ref.remap(
             self.worlds[k], ans[1], ans[2], ans[3], params, self.device)))
         return got

@@ -12,6 +12,11 @@ entry in ``BENCHMARK.json``, never an edit of a file that exists:
   request loop where the mix needs another shape of load);
 * ``slambench/metrics/<metric>.py``: a per-layer metric's reader, a
   ``read(ctx)`` that returns a number or None;
+* ``slambench/reference/<reference>.py``: the plain reference that a
+  configuration's ``"reference"`` names (``icm`` where it names none);
+* ``slambench/worlds/<generator>.py``: the world generator that a
+  configuration's ``world.generator`` names, a ``generate(seed=..., **kw)``
+  (``synthetic_world`` is ``harness/worlds.py``'s own);
 * ``slambench/limits/<cell>.json``: the limits of the cell's correctness
   check.
 """
@@ -19,7 +24,10 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
+
+from slambench.harness.worlds import synthetic_world
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -63,10 +71,15 @@ class Registry:
                 if cell in m["workloads"]]
 
     def _module(self, kind: str, name: str):
+        path = self.dir / kind / f"{name}.py"
+        if not path.is_file():
+            raise KeyError(f"no {kind} {name!r}: {path} is not a file")
         spec = importlib.util.spec_from_file_location(
             f"slambench_{kind}_" + name.replace(".", "_").replace("-", "_"),
-            self.dir / kind / f"{name}.py")
+            path)
         mod = importlib.util.module_from_spec(spec)
+        # a dataclass looks its module up while the class is made
+        sys.modules[spec.name] = mod
         spec.loader.exec_module(mod)
         return mod
 
@@ -78,7 +91,21 @@ class Registry:
         """The ``Entry`` class of ``entries/<name>.py``."""
         return self._module("entries", name).Entry
 
+    def reference(self, name: str):
+        """The module ``reference/<name>.py``: its ``Params`` (with
+        ``from_solver``), ``offline`` and ``remap``, and what an entry of
+        its own calls."""
+        return self._module("reference", name)
+
+    def world_generator(self, name: str):
+        """The generator a configuration's ``world.generator`` names:
+        ``synthetic_world``, or the ``generate`` of ``worlds/<name>.py``."""
+        if name == "synthetic_world":
+            return synthetic_world
+        return self._module("worlds", name).generate
+
     def generator(self, traffic: str, config: dict, seed: int, device):
         """The mix ``traffic``'s entry over the worlds of ``config``."""
         mix = self.traffic(traffic)
-        return self.entry(mix["entry"])(mix, config, seed, device)
+        return self.entry(mix["entry"])(mix, config, seed, device,
+                                        registry=self)

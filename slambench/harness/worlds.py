@@ -6,6 +6,8 @@ equal for the same arguments on the same machine): a robot drives a smooth
 loop among tree trunks, a 181-beam lidar at 1 degree sees them, and the
 odometry drifts as a random walk.  The benchmark keeps its own copy so
 that a change to the program's generator cannot change what is measured.
+A configuration that names another generator finds it in
+``slambench/worlds/<name>.py`` (``Registry.world_generator``).
 """
 from __future__ import annotations
 
@@ -93,8 +95,11 @@ def world_seeds(seed: int, n: int) -> list:
         int(seed) % (1 << 64)).generate_state(n, dtype=np.uint32)]
 
 
-def make_worlds(spec: dict, seed: int, n: int) -> list:
-    """``n`` worlds of a configuration's ``world`` spec (the generator's
-    keyword arguments) from ``--seed``."""
-    kw = {k: v for k, v in spec.items() if k != "generator"}
-    return [synthetic_world(seed=s, **kw) for s in world_seeds(seed, n)]
+def make_worlds(spec: dict, seed: int, n: int, find) -> list:
+    """``n`` worlds of a configuration's ``world`` spec from ``--seed``:
+    the generator that ``spec["generator"]`` names (``find(name)``, the
+    registry's ``world_generator``), called with the spec's other keys and
+    each of the ``world_seeds`` that every generator shares."""
+    kw = dict(spec)
+    generate = find(kw.pop("generator"))
+    return [generate(seed=s, **kw) for s in world_seeds(seed, n)]

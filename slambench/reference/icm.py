@@ -61,21 +61,22 @@ class Params:
                  "init_final_assoc": True, "init_merge_cap": 0,
                  "dtype": "float32", "model": None}
 
-    @staticmethod
-    def from_solver(solver: dict, supported=None) -> "Params":
-        """The parameters of a configuration's ``solver``, refused where it
-        asks for a path the pipelines here do not implement; a reference
-        of another path (a file of its own) passes what it implements as
-        ``supported``."""
-        for k, v in (Params.SUPPORTED if supported is None
+    @classmethod
+    def from_solver(cls, solver: dict, supported=None) -> "Params":
+        """The parameters of a configuration's ``solver`` over ``cls``'s
+        fields, refused where it asks for a path that ``cls.SUPPORTED``
+        (or ``supported``) does not list.  A reference of another path (a
+        file of its own) subclasses ``Params`` with its own fields and
+        ``SUPPORTED``."""
+        for k, v in (cls.SUPPORTED if supported is None
                      else supported).items():
             if solver.get(k, v) != v:
                 raise ValueError(f"the reference implements {k}={v!r}, "
                                  f"not {solver[k]!r}")
-        known = {f.name for f in dataclasses.fields(Params)}
+        known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: (tuple(v) if isinstance(v, list) else v)
               for k, v in solver.items() if k in known}
-        return Params(**kw)
+        return cls(**kw)
 
     def replace_n(self, n: int) -> "Params":
         return dataclasses.replace(self, N=n)

@@ -5,6 +5,7 @@
 The ``cuda`` tests run on a machine with a card (they skip elsewhere).
 """
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -120,6 +121,229 @@ def test_new_config_traffic_metric_and_limits_are_files_only(
     assert res["attempted"] == 2
     now = _digests(root / "slambench")
     assert {k: v for k, v in now.items() if k in before} == before
+
+
+# a reference of another solver path, as a file of its own: the causal
+# init (``init_mode="sequential"``) followed by the batched sweeps, composed
+# of ``reference/icm.py``'s pieces; its ``Params`` adds ``init_mode``
+SEQINIT_REFERENCE = """
+import dataclasses
+
+import numpy as np
+import torch
+
+from slambench.reference import icm
+from slambench.reference.icm import remap  # noqa: F401
+
+CALLS = []          # (N, dtype) of every offline run, for the tests
+
+
+@dataclasses.dataclass(frozen=True)
+class Params(icm.Params):
+    init_mode: str = "auto"
+
+    SUPPORTED = dict(icm.Params.SUPPORTED, init_mode="sequential")
+
+
+def offline(world, p, device, dtype=torch.float32):
+    if p.init_mode != "sequential":
+        raise ValueError("this reference runs the causal init only")
+    CALLS.append((p.N, dtype))
+    w = icm.Weights(p, dtype, device)
+    dist, mask, ang, odom, u = icm._inputs(world, p, dtype, device)
+    x0 = torch.as_tensor(np.asarray(world.x0), device=device).to(dtype)
+    m0 = icm.seed(dist[0], mask[0], ang, x0, p)
+    m, x_init = icm.causal_init(dist, mask, ang, odom, u, x0, m0, p, w)
+    m = icm.filter_map(m, p.cota, p.dist_thr)
+    m, x = icm.refine(dist, mask, ang, odom, u, m, x_init, p, w)
+    return icm._result(m, x_init, x)
+"""
+
+# a world generator of its own: the grove loop driven twice, so that every
+# frame of the second lap revisits the first's trunks
+TWO_LAPS = """
+from slambench.harness.worlds import synthetic_world
+
+
+def generate(seed, **kw):
+    return synthetic_world(seed=seed, laps=2, **kw)
+"""
+
+# one sweep (N=1) leaves the map short of where another sweep puts it
+TINY_LIMITS = {"check_worlds": 2, "limits": {"x_gap_median": 0.01,
+                                             "init_gap_median": 0.01,
+                                             "refine_shift_gap": 0.05,
+                                             "map_self_gap": 0.5}}
+
+
+def add_seqinit_cell(root: Path) -> None:
+    """The cell ``tiny_seq.offline``: a configuration that names the
+    reference ``seqinit`` and the generator ``two_laps``, served by the
+    ``offline`` mix through ``run()``, added as files and entries in
+    BENCHMARK.json alone."""
+    sb = root / "slambench"
+    cfg = json.loads((sb / "configs" / "grove_t1833.json").read_text())
+    cfg["name"] = "tiny_seq"
+    cfg["reference"] = "seqinit"
+    cfg["world"].update(generator="two_laps", T=100, n_landmarks=8)
+    cfg["solver"].update(N=1, L=128, cota=5.0, init_mode="sequential")
+    (sb / "configs" / "tiny_seq.json").write_text(json.dumps(cfg))
+    (sb / "reference" / "seqinit.py").write_text(SEQINIT_REFERENCE)
+    (sb / "worlds").mkdir(exist_ok=True)
+    (sb / "worlds" / "two_laps.py").write_text(TWO_LAPS)
+    (sb / "limits" / "tiny_seq.offline.json").write_text(
+        json.dumps(TINY_LIMITS))
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "tiny_seq", "source": "test",
+                         "file": "slambench/configs/tiny_seq.json",
+                         "reduced": ["world"], "why": "test"})
+    b["workloads"].append({"name": "tiny_seq.offline", "config": "tiny_seq",
+                           "traffic": "offline", "chips": 1, "why": "test"})
+    for m in b["end_to_end"] + b["per_layer"]:
+        if "grove.offline" in m.get("workloads", []):
+            m["workloads"].append("tiny_seq.offline")
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+
+
+@pytest.fixture(scope="module")
+def with_seqinit(tmp_path_factory):
+    """A checkout whose BENCHMARK.json holds the ``tiny_seq.offline``
+    cell."""
+    root = copy_checkout(tmp_path_factory.mktemp("seqinit"))
+    add_seqinit_cell(root)
+    return Registry(root)
+
+
+def _spy_references(monkeypatch) -> list:
+    """The reference modules the registry loads, in order."""
+    loaded = []
+    real = Registry.reference
+
+    def spy(self, name):
+        loaded.append(real(self, name))
+        return loaded[-1]
+    monkeypatch.setattr(Registry, "reference", spy)
+    return loaded
+
+
+def test_a_config_of_another_solver_path_is_files_only(
+        tmp_path, one_thread, monkeypatch, capsys):
+    """A configuration of another solver path (the causal init, then the
+    batched sweeps) with a reference and a world generator of its own
+    needs new files and entries in BENCHMARK.json only: every file that
+    was there stays as it was, the cell runs and comes out correct, held
+    to its own reference, and ``control.py`` reads that reference."""
+    root = copy_checkout(tmp_path)
+    before = _digests(root / "slambench")
+    add_seqinit_cell(root)
+    reg = Registry(root)
+    loaded = _spy_references(monkeypatch)
+    res, rows = bench.run_cell("tiny_seq.offline", 3, 0.3, False,
+                               time.perf_counter(), device="cpu",
+                               registry=reg, log=lambda m: None)
+    assert res["correct"], res["checks"]
+    assert set(res["checks"]) == set(TINY_LIMITS["limits"])
+    assert [m.__name__ for m in loaded] == ["slambench_reference_seqinit"]
+    # the check ran the cell's reference, at the configuration's N
+    assert loaded[0].CALLS and set(loaded[0].CALLS) == {(1, torch.float32)}
+    now = _digests(root / "slambench")
+    assert {k: v for k, v in now.items() if k in before} == before
+
+    # control.py of that checkout: its readings come from the same file
+    spec = importlib.util.spec_from_file_location(
+        "slambench_test_control", root / "slambench" / "control.py")
+    control = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(control)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    capsys.readouterr()
+    assert control.main(["--workload", "tiny_seq.offline", "--seeds", "3",
+                         "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert len(lines) == 2
+    for x in lines:
+        assert set(TINY_LIMITS["limits"]) <= set(x["sound"])
+        assert all(x["sound"][n] <= lim
+                   for n, lim in TINY_LIMITS["limits"].items()), x
+    calls = loaded[-1].CALLS
+    assert loaded[-1].__name__ == "slambench_reference_seqinit"
+    assert calls == [(1, torch.float32), (1, torch.bfloat16),
+                     (0, torch.float32)] * 2
+
+
+@pytest.mark.parametrize("solver", [{"sweep_mode": "windowed_ba"},
+                                    {"sweep_mode": "sequential"},
+                                    {"init_mode": "sequential"},
+                                    {"pose_update": "jacobi"},
+                                    {"replicate_new_obs_quirk": False}])
+def test_a_path_the_reference_does_not_implement_fails_before_warm_up(
+        solver, monkeypatch):
+    """A configuration that names no reference of its own but asks for a
+    path that ``reference/icm.py`` does not implement is refused at
+    set-up, with the refusal's message: no world is served, the warm-up
+    never runs."""
+    warmed = []
+    monkeypatch.setattr(drive.Entry, "warm",
+                        lambda self: warmed.append(self))
+    (key, value), = solver.items()
+    with pytest.raises(ValueError, match=f"implements {key}="):
+        bench.run_cell("grove.offline", 1, 0.1, False, time.perf_counter(),
+                       device="cpu", log=lambda m: None,
+                       overrides={"solver": solver})
+    assert warmed == []
+
+
+@pytest.mark.parametrize("override,missing", [
+    ({"reference": "no_such_reference"}, "reference"),
+    ({"world": {"generator": "no_such_generator"}}, "worlds")])
+def test_an_unknown_reference_or_generator_fails_at_set_up(
+        override, missing, monkeypatch):
+    warmed = []
+    monkeypatch.setattr(drive.Entry, "warm",
+                        lambda self: warmed.append(self))
+    with pytest.raises(KeyError, match=f"no {missing} 'no_such_"):
+        bench.run_cell("grove.offline", 1, 0.1, False, time.perf_counter(),
+                       device="cpu", log=lambda m: None, overrides=override)
+    assert warmed == []
+
+
+def test_a_generator_file_found_by_name_makes_the_worlds(with_seqinit):
+    """``worlds/<name>.py``'s ``generate`` makes the worlds, one from each
+    of the seeds every generator shares; ``synthetic_world`` is the
+    harness's own."""
+    from slambench.harness.worlds import make_worlds
+    spec = {"generator": "two_laps", "T": 60, "n_landmarks": 6}
+    got = make_worlds(spec, 2 ** 31 + 9, 3, with_seqinit.world_generator)
+    seeds = world_seeds(2 ** 31 + 9, 3)
+    for w, s in zip(got, seeds):
+        want = synthetic_world(T=60, n_landmarks=6, seed=s, laps=2)
+        for f in ("scans", "odom", "u", "x0"):
+            assert np.array_equal(getattr(w, f), getattr(want, f))
+    plain = make_worlds(dict(spec, generator="synthetic_world"), 2 ** 31 + 9,
+                        3, with_seqinit.world_generator)
+    assert [w.x0.tolist() for w in plain] != [w.x0.tolist() for w in got] \
+        or any(not np.array_equal(a.u, b.u) for a, b in zip(plain, got))
+    for w, s in zip(plain, seeds):
+        want = synthetic_world(T=60, n_landmarks=6, seed=s)
+        assert np.array_equal(w.scans, want.scans)
+
+
+def test_the_entry_holds_the_configurations_reference(with_seqinit):
+    """The entry resolves the configuration's reference and builds its
+    ``Params`` at set-up; a configuration that names none gets
+    ``reference/icm.py``'s."""
+    reg = with_seqinit
+    gen = reg.generator("offline", reg.config("tiny_seq"), 5, "cpu")
+    assert gen.ref.__name__ == "slambench_reference_seqinit"
+    assert type(gen.params).__name__ == "Params"
+    assert gen.params.init_mode == "sequential" and gen.params.N == 1
+    assert gen.params.replace_n(0).init_mode == "sequential"
+    cfg = reg.config("grove_t1833")
+    del cfg["reference"]
+    cfg["world"].update(T=60)
+    gen = reg.generator("offline", cfg, 5, "cpu")
+    assert gen.ref.__name__ == "slambench_reference_icm"
+    assert not hasattr(gen.params, "init_mode")
+    assert gen.params == gen.ref.Params.from_solver(cfg["solver"])
 
 
 def test_cells_find_every_piece_by_name():
@@ -327,10 +551,12 @@ def _run(args, cwd, timeout=300):
 
 
 @pytest.mark.parametrize("cell", ["grove.offline", "fleet8.offline",
-                                  "grove.stream"])
-def test_a_run_loads_no_jax(cell, with_stream):
+                                  "grove.stream", "tiny_seq.offline"])
+def test_a_run_loads_no_jax(cell, with_stream, with_seqinit):
     """The harness, the program and the reference on a small cell load no
-    JAX and no JAX package (a fresh process)."""
+    JAX and no JAX package (a fresh process); ``tiny_seq.offline`` names a
+    reference file and a generator file of its own."""
+    reg = with_seqinit if cell == "tiny_seq.offline" else with_stream
     code = (
         "import sys, time; sys.path.insert(0, %r)\n"
         "from slambench.harness import bench, guard\n"
@@ -340,7 +566,7 @@ def test_a_run_loads_no_jax(cell, with_stream):
         "log=lambda m: None, registry=Registry(%r))\n"
         "assert res['correct'], res\n"
         "print(guard.forbidden_modules())\n") % (
-            str(ROOT), cell, SMALL, str(with_stream.root))
+            str(ROOT), cell, SMALL, str(reg.root))
     out = _run(["-c", code], ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"

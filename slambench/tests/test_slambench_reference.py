@@ -3,6 +3,7 @@ and of the check that decides ``correct``: the reference agrees with the
 program on small worlds, imports nothing of the program, and its control
 (the reference in bfloat16) fails every cell's limits.  At the cells' own
 size the readings are taken on the card by ``slambench/control.py``."""
+import dataclasses
 import json
 import subprocess
 import sys
@@ -98,6 +99,37 @@ def test_reference_refuses_what_it_does_not_implement():
     seq = dict(ref.Params.SUPPORTED, sweep_mode="sequential")
     assert ref.Params.from_solver({"sweep_mode": "sequential", "N": 2},
                                   seq).N == 2
+
+
+@dataclasses.dataclass(frozen=True)
+class _WindowedParams(ref.Params):
+    """A reference of windowed BA's parameters: its own fields and what it
+    implements."""
+    ba_window: int = 64
+    ba_gn_iters: int = 4
+
+    SUPPORTED = dict(ref.Params.SUPPORTED, sweep_mode="windowed_ba")
+
+
+def test_a_params_subclass_keeps_its_own_fields():
+    """``from_solver`` builds the subclass over its own fields and holds
+    the solver to its own ``SUPPORTED``; ``replace_n`` keeps the extra
+    fields."""
+    solver = {"sweep_mode": "windowed_ba", "ba_window": 32, "N": 5,
+              "ba_gn_iters": 2, "Q": [1.0, 2.0], "map_run_cap": 256}
+    p = _WindowedParams.from_solver(solver)
+    assert type(p) is _WindowedParams
+    assert (p.ba_window, p.ba_gn_iters, p.N, p.Q) == (32, 2, 5, (1.0, 2.0))
+    q = p.replace_n(0)
+    assert type(q) is _WindowedParams
+    assert (q.ba_window, q.ba_gn_iters, q.N) == (32, 2, 0)
+    with pytest.raises(ValueError, match="sweep_mode='windowed_ba'"):
+        _WindowedParams.from_solver({"sweep_mode": "batched"})
+    # the batched reference still refuses it, and reads no such field
+    with pytest.raises(ValueError, match="sweep_mode='batched'"):
+        ref.Params.from_solver(solver)
+    assert not hasattr(ref.Params.from_solver({"ba_window": 32}),
+                       "ba_window")
 
 
 def test_numbers_are_zero_for_equal_answers_and_see_wrong_ones():
