@@ -12,6 +12,20 @@ windows, the (3 win x 3 win) normal systems by one batched
 the window boundaries.  The per-frame averages go through
 ``landmark_map.add_rows`` (a fixed order on the card too).  A fleet's W
 worlds (a leading world axis) put all their windows in one batch.
+
+Spans (``utils.profiling.span``): ``icm.wba.assoc`` around the
+association, ``icm.wba.pass`` around each pass, holding each LM step's
+``icm.wba.jacobian`` (the residuals and their Jacobians),
+``icm.wba.normal`` (J^T r, J^T J, the damping and the batched solve) and
+``icm.wba.accept`` (the trial residuals and the LM accept test), and
+``icm.wba.fill`` around the empty frames' neighbour average.  Given a
+``timings`` dict, a sweep adds to its counters ``wba_passes``,
+``wba_windows`` (the windows solved), ``wba_steps`` (the windows' LM
+steps), ``wba_pass_s`` (host seconds in the passes) and ``wba_accepted``
+(the accepted steps, a device tensor that the caller reads once, with
+its results), and the size of the normal systems solved: ``wba_rows``
+and ``wba_cols``, each system's residual rows and pose columns summed
+over the window LM steps.  None of them waits for the device.
 """
 from __future__ import annotations
 
@@ -26,6 +40,7 @@ from icm_slam_tpu_torch.core.geometry import unicycle_step
 from icm_slam_tpu_torch.mapping.landmark_map import MapState, add_rows
 from icm_slam_tpu_torch.solver.sweeps import (SweepData, _per_frame_ang,
                                               batched_associate, compact_data)
+from icm_slam_tpu_torch.utils.profiling import span
 
 
 def _chain_residuals(xa, xb, u_a, odo_a, odo_b, w):
@@ -74,12 +89,21 @@ def _window_residuals(p, x_prev_fix, x_next_fix, dist, ang, mask, matched,
     return torch.cat([r_obs.reshape(-1), r_chain.reshape(-1)])
 
 
-def _solve_windows(data: SweepData, obs, x, offset, win, last_t, config, w):
+def _count(timings, **add) -> None:
+    """Add to the counters in ``timings`` (None: nothing)."""
+    if timings is not None:
+        for k, v in add.items():
+            timings[k] = timings.get(k, 0) + v
+
+
+def _solve_windows(data: SweepData, obs, x, offset, win, last_t, config, w,
+                   timings=None):
     """One pass over the windows of ``win`` frames starting at offset + 1,
     offset + 1 + win, ... (pose 0 is never free), all solved in one batch.
     A fleet (``x`` (W, T, 3), ``data`` and ``obs`` with the world axis)
     puts the windows of all W worlds in that batch, world by world, and
-    averages each world's poses in its own rows of one flat table."""
+    averages each world's poses in its own rows of one flat table.
+    ``timings`` gets the pass's counters."""
     T = x.shape[-2]
     lead = x.shape[:-2]
     n = math.prod(lead)
@@ -115,20 +139,32 @@ def _solve_windows(data: SweepData, obs, x, offset, win, last_t, config, w):
     eye = torch.eye(3 * win, dtype=dtype, device=dev)
     flat = take(x, idx_c).reshape(n * n_win, 3 * win)
     lam = torch.full((n * n_win,), 1e-4, dtype=dtype, device=dev)
+    accepted, m = 0, 0
     for _ in range(config.ba_gn_iters):
-        r = resid(flat, *args)                                # (n, m)
-        J = jac(flat, *args)                                  # (n, m, 3win)
-        Jt = J.transpose(1, 2)
-        g = torch.bmm(Jt, r[..., None])[..., 0]
-        H = torch.bmm(Jt, J)
-        damp = torch.diag_embed(torch.clamp(
-            torch.diagonal(H, dim1=1, dim2=2), min=1e-9))
-        A = H + lam[:, None, None] * damp + 1e-9 * eye
-        new = flat + torch.linalg.solve_ex(A, -g).result   # no sync
-        r_new = resid(new, *args)
-        better = (r_new * r_new).sum(dim=1) < (r * r).sum(dim=1)
-        flat = torch.where(better[:, None], new, flat)
-        lam = torch.where(better, lam * 0.3, lam * 5.0)
+        with span("icm.wba.jacobian"):
+            r = resid(flat, *args)                            # (n, m)
+            J = jac(flat, *args)                              # (n, m, 3win)
+            m = J.shape[1]
+        with span("icm.wba.normal"):
+            Jt = J.transpose(1, 2)
+            g = torch.bmm(Jt, r[..., None])[..., 0]
+            H = torch.bmm(Jt, J)
+            damp = torch.diag_embed(torch.clamp(
+                torch.diagonal(H, dim1=1, dim2=2), min=1e-9))
+            A = H + lam[:, None, None] * damp + 1e-9 * eye
+            delta = torch.linalg.solve_ex(A, -g).result       # no sync
+        with span("icm.wba.accept"):
+            new = flat + delta
+            r_new = resid(new, *args)
+            better = (r_new * r_new).sum(dim=1) < (r * r).sum(dim=1)
+            flat = torch.where(better[:, None], new, flat)
+            lam = torch.where(better, lam * 0.3, lam * 5.0)
+            if timings is not None:
+                accepted = accepted + better.sum()
+    steps = n * n_win * config.ba_gn_iters
+    _count(timings, wba_passes=1, wba_windows=n * n_win, wba_steps=steps,
+           wba_accepted=accepted, wba_rows=steps * m,
+           wba_cols=steps * 3 * win)
 
     # each frame lies in at most one window of a pass: the average below
     # is that window's pose (frames past last_t add zeros); each world's
@@ -146,26 +182,32 @@ def _solve_windows(data: SweepData, obs, x, offset, win, last_t, config, w):
 
 
 def windowed_ba_refine(data: SweepData, old_map: MapState, x, config, w,
-                       window: int = 64, last_t: int | None = None
-                       ) -> Tuple[MapState, torch.Tensor]:
+                       window: int = 64, last_t: int | None = None,
+                       timings=None) -> Tuple[MapState, torch.Tensor]:
     """One outer iteration: batched association + two offset window
     passes, then the reference's neighbour average for empty frames.  A
     fleet (``x`` (W, T, 3), ``data`` and ``old_map`` with the world axis)
     is one association and one batch of windows a pass for all W
-    worlds."""
+    worlds.  ``timings`` gets the passes' counters."""
     T = x.shape[-2]
     if last_t is None:
         last_t = T - 1
     cap = config.obs_cap if config.obs_cap else data.dist.shape[-1]
     data_c = compact_data(data, cap) if cap < data.dist.shape[-1] \
         else _per_frame_ang(data)
-    _, final_map, matched = batched_associate(data_c, old_map, x, config)
+    with span("icm.wba.assoc"):
+        _, final_map, matched = batched_associate(data_c, old_map, x, config)
     obs = (data_c.dist, data_c.ang, data_c.mask, matched)
-    x = _solve_windows(data, obs, x, 0, window, last_t, config, w)
-    x = _solve_windows(data, obs, x, window // 2, window, last_t, config, w)
-    empty = ~data.mask.any(dim=-1)
-    t_idx = torch.arange(T, device=x.device)
-    avg = (x[..., torch.clamp(t_idx - 1, min=0), :]
-           + x[..., torch.clamp(t_idx + 1, max=T - 1), :]) / 2
-    sel = empty & (t_idx >= 1) & (t_idx <= last_t)
-    return final_map, torch.where(sel[..., None], avg, x)
+    for offset in (0, window // 2):
+        t = {}
+        with span("icm.wba.pass", t, "s"):
+            x = _solve_windows(data, obs, x, offset, window, last_t, config,
+                               w, timings)
+        _count(timings, wba_pass_s=t["s"])
+    with span("icm.wba.fill"):
+        empty = ~data.mask.any(dim=-1)
+        t_idx = torch.arange(T, device=x.device)
+        avg = (x[..., torch.clamp(t_idx - 1, min=0), :]
+               + x[..., torch.clamp(t_idx + 1, max=T - 1), :]) / 2
+        sel = empty & (t_idx >= 1) & (t_idx <= last_t)
+        return final_map, torch.where(sel[..., None], avg, x)

@@ -33,7 +33,9 @@ its init, hoist, sweeps and gather in ``icm.pipeline``.  The spans that
 feed ``timings`` are ``icm.prepare`` (``prepare_s``), ``icm.init``
 (``init_s``), ``icm.hoist`` (``hoist_s``), ``icm.refine`` (``refine_s``),
 ``icm.pipeline`` (``pipeline_s``) and the two captures'
-``icm.graph.capture`` (``init_capture_s``, ``capture_s``).
+``icm.graph.capture`` (``init_capture_s``, ``capture_s``).  A
+``windowed_ba`` sweep adds its spans and counters (``wba_*``,
+``models.windowed_ba``) to ``run()``'s and ``run_batched()``'s timings.
 """
 from __future__ import annotations
 
@@ -253,12 +255,13 @@ def _init(data: SweepData, seed: MapState, x0, config: ICMConfig, w,
 
 
 def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
-                 w):
+                 w, timings=None):
     """One refinement sweep + map filtering.
 
     Returns (filtered map, poses, witness): witness = int32 [raw pre-filter
     live count, kept-after-prune count], validated by check_witness; a
-    fleet's sweep (world axis W) returns (W, 2) witnesses.
+    fleet's sweep (world axis W) returns (W, 2) witnesses.  A
+    ``windowed_ba`` sweep adds its counters to ``timings``.
     """
     if config.sweep_mode == "sequential":
         state, x = refine_sweep_sequential(data, old_map, x, config, w)
@@ -270,7 +273,8 @@ def _refine_step(data: SweepData, old_map: MapState, x, config: ICMConfig,
     elif config.sweep_mode == "windowed_ba":
         from icm_slam_tpu_torch.models.windowed_ba import windowed_ba_refine
         state, x = windowed_ba_refine(data, old_map, x, config, w,
-                                      window=config.ba_window)
+                                      window=config.ba_window,
+                                      timings=timings)
     else:
         state, x = refine_sweep_batched(data, old_map, x, config, w)
     filtered = filter_map(state, config.cota, config.dist_thr,
@@ -330,10 +334,11 @@ def refine_sweeps(data: SweepData, cur_map: MapState, x, config: ICMConfig,
     yielded); the witness and the change are copies.  A capture that
     fails raises: the card never falls back to eager sweeps.  The
     capture's seconds go to ``timings["capture_s"]`` when given (0
-    without a capture), a hit to ``timings["graph_hits"]``.
+    without a capture), a hit to ``timings["graph_hits"]``, and an eager
+    ``windowed_ba`` sweep's counters to its ``wba_*`` keys.
     """
     def sweep(data, w, cur_map, x):
-        new_map, x, wit = _refine_step(data, cur_map, x, config, w)
+        new_map, x, wit = _refine_step(data, cur_map, x, config, w, timings)
         return new_map, x, wit, (map_change(new_map, cur_map,
                                             live_cap=config.map_run_cap)
                                  if change else None)
@@ -440,6 +445,14 @@ def _sync(device: torch.device) -> None:
             torch.cuda.synchronize(device)
 
 
+def _read_counts(timings: dict) -> None:
+    """The counters that a solve kept on the device (``wba_accepted``) as
+    host ints, read with the results."""
+    for k, v in timings.items():
+        if isinstance(v, torch.Tensor):
+            timings[k] = int(v)
+
+
 def run(dataset: Dataset, config: ICMConfig, device,
         n_iters: Optional[int] = None, verbose: bool = False,
         callback=None, on_init=None, callback_stride: int = 1) -> ICMResult:
@@ -513,6 +526,7 @@ def run(dataset: Dataset, config: ICMConfig, device,
         timings["refine_per_iter_s"] = timings["refine_s"] / max(n_iters, 1)
 
         with span("icm.result"):
+            _read_counts(timings)
             nact = int(cur_map.nact)
             return ICMResult(
                 x_init=x_init, x=x.cpu().numpy(),
@@ -668,6 +682,7 @@ def run_batched(datasets, config: ICMConfig, device,
         timings["per_world_s"] = timings["pipeline_s"] / W
 
         with span("icm.result"):
+            _read_counts(timings)
             x_init, x, pos, counts, nacts, init_wit, wits = (
                 a.cpu().numpy() for a in out)
         merge_cap = _init_merge_cap(config)

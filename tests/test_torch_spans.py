@@ -268,3 +268,63 @@ def test_a_hit_replays_every_step_on_the_card(entry):
     for r in res:
         assert r.timings["graph_hits"] == 2
         assert r.timings["init_capture_s"] == r.timings["capture_s"] == 0.0
+
+
+WBA = ICMConfig(N=2, L=256, cota=5.0, sweep_mode="windowed_ba", ba_window=16)
+WBA_KEYS = {"wba_passes", "wba_windows", "wba_steps", "wba_accepted",
+            "wba_pass_s", "wba_rows", "wba_cols"}
+
+
+def _wba_call(entry):
+    worlds = _worlds()
+    if entry == "run":
+        return [icm.run(worlds[0], WBA, "cpu")]
+    return icm.run_batched(worlds, WBA, "cpu")
+
+
+@pytest.mark.parametrize("entry", ["run", "run_batched"])
+def test_a_windowed_ba_call_opens_its_spans_and_counts(entry):
+    """Each ``windowed_ba`` sweep: ``icm.wba.assoc``, two ``icm.wba.pass``
+    (each holding a ``jacobian``, ``normal`` and ``accept`` span a window
+    LM step), ``icm.wba.fill``; the timings count the passes, the windows
+    (a world's T=120 frames: 8 windows of 16 in the first pass, 7 in the
+    offset one), their LM steps and the accepted ones, the passes' host
+    seconds, and the rows and columns of the systems solved, read as host
+    numbers."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = _wba_call(entry)
+    (top,) = _tree(prof)
+    (refine,) = top.phase("icm.refine")
+    sweeps = refine.find("icm.refine.eager")
+    assert len(sweeps) == WBA.N
+    for sw in sweeps:
+        assert sw.names() == ["icm.wba.assoc", "icm.wba.pass",
+                              "icm.wba.pass", "icm.wba.fill"]
+        for p in sw.find("icm.wba.pass"):
+            assert p.names() == ["icm.wba.jacobian", "icm.wba.normal",
+                                 "icm.wba.accept"] * WBA.ba_gn_iters
+    W = 1 if entry == "run" else len(SEEDS)
+    for r in res:
+        t = r.timings
+        assert set(t) == KEYS[entry] | WBA_KEYS
+        assert t["wba_passes"] == 2 * WBA.N
+        assert t["wba_windows"] == WBA.N * (8 + 7) * W
+        assert t["wba_steps"] == t["wba_windows"] * WBA.ba_gn_iters
+        assert type(t["wba_accepted"]) is int
+        assert 0 < t["wba_accepted"] <= t["wba_steps"]
+        assert 0 < t["wba_pass_s"] <= t["refine_s"]
+        assert t["wba_cols"] == t["wba_steps"] * 3 * WBA.ba_window
+        # a system's rows: 2 a beam of its frames, 6 an edge (17 edges)
+        assert t["wba_rows"] % t["wba_steps"] == 0
+        assert (t["wba_rows"] // t["wba_steps"] - 6 * 17) % 32 == 0
+
+
+def test_a_windowed_ba_run_is_bitwise_the_same_under_the_profiler():
+    """The spans and counters change no arithmetic: answers with the
+    profiler on are the answers with it off, bit for bit."""
+    (off,) = _wba_call("run")
+    with profile(activities=[ProfilerActivity.CPU]):
+        (on,) = _wba_call("run")
+    for f in ("x_init", "x", "map_pos", "map_counts"):
+        assert getattr(on, f).tobytes() == getattr(off, f).tobytes(), f
+    assert on.timings["wba_accepted"] == off.timings["wba_accepted"]
